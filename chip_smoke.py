@@ -13,15 +13,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
             card) and against torch.sort, bit-exact, at n = 2, 2^10, 2^18
             (half SENTINEL), 2^23 and 2^27; prints kernel/plain/library times
             (CUDA events, median after a warm-up) and the bytes bound;
-3. parity   the port's CLI on a 12 Mb wheat-like genome on the card and on
-            the CPU (plain versions): the five count/map/enrich files must
-            be byte-identical and the subgenome assignments equal;
-4. main     the port's CLI at real size: tools/gen_wheat_scale.py 2 80, a
+3. primitives  the sort-primitives tool (tools/bench_sort_primitives_torch.py)
+            at its full size, 128 blocks of 2^18 keys, with the launch counts
+            read around it; then every kernel behind it bit-exact against its
+            plain version on the card (tool inputs and full-range keys),
+            block_sort_unrolled also against block_sort, descent18 of a
+            bitonic input against torch.sort; prints each kernel's and plain
+            version's time and the bytes bound;
+4. parity   the port's CLI on a 12 Mb wheat-like genome on the card and on
+            the CPU (plain versions), at k = 15 and at k = 17 (pair codes):
+            the five count/map/enrich files must be byte-identical and the
+            subgenome assignments equal;
+5. main     the port's CLI at real size: tools/gen_wheat_scale.py 2 80, a
             480 Mb allohexaploid (2 homoeologous sets x A/B/D x 80 Mb), with
             -min_freq 200 and the default 1000 bootstrap replicates. All six
             chromosomes must phase by subgenome with bootstrap >= 90, the
             dense mapping path must run, and the sort kernel must launch.
             Prints seconds per step, Mbp/s and peak device memory.
+6. main_k17 the same genome and options at -k 17: pair codes (int64 keys)
+            through counting and the searchsorted mapping path. Same checks,
+            and the significant k-mers must be 17 letters of ACGT.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object describing each kernel, and the result object.
@@ -29,6 +40,7 @@ object describing each kernel, and the result object.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import shutil
@@ -46,17 +58,33 @@ CORE_FILES = [".kmer.mat", ".chrom-subgenome.tsv", ".sig.kmer-subgenome.tsv",
               ".subgenome.bin.count", ".bin.enrich", ".bin.group"]
 
 
-def tpu_kernel_site() -> str:
-    """file:line of the Pallas block-sort kernel this CUDA kernel replaces
-    (read as text from the JAX package in the same checkout)."""
+def tpu_kernel_site(pattern: str, needle: str) -> str:
+    """file:line of the first line starting with ``needle`` in the file
+    matching ``pattern``: the Pallas kernel a CUDA kernel replaces (read as
+    text from the same checkout)."""
     import glob
 
-    for path in sorted(glob.glob(os.path.join(ROOT, "*", "ops", "sort_vmem.py"))):
+    for path in sorted(glob.glob(os.path.join(ROOT, *pattern.split("/")))):
         with open(path) as f:
             for i, line in enumerate(f, 1):
-                if line.startswith("def _block_sort_kernel_grid"):
+                if line.startswith(needle):
                     return f"{os.path.relpath(path, ROOT)}:{i}"
-    raise RuntimeError("the TPU sort kernel's source was not found")
+    raise RuntimeError(f"the TPU kernel's source ({needle!r}) was not found")
+
+
+SORT_VMEM = "*/ops/sort_vmem.py"
+JAX_TOOL = "tools/bench_sort_primitives.py"
+# kernel (= launch counter) of the primitives path -> (TPU kernel site, the
+# tool's candidates it serves, the first being the one whose times it reports)
+PRIMITIVE_KERNELS = {
+    "block_sort_unrolled": (SORT_VMEM, "def _block_sort_kernel(", ["block_sort_unrolled"]),
+    "block_map": (JAX_TOOL, "def pallas_block_map(", [
+        "descent18", "passthrough", "elementwise30", "lane_roll_stages",
+        "sublane_reshape_vreg", "sublane_reshape_small", "sublane_roll_stages",
+        "transpose8"]),
+    "descent_masked": (JAX_TOOL, "def _descent_masked(", ["descent18_masked"]),
+    "descent_grid2d": (JAX_TOOL, "def _descent_grid2d(", ["descent18_grid2d"]),
+}
 
 
 def log(msg: str) -> None:
@@ -129,6 +157,73 @@ def phase_sort() -> dict:
     return rows
 
 
+def load_tool():
+    """The sort-primitives tool as a module (tools/ is not a package)."""
+    path = os.path.join(ROOT, "tools", "bench_sort_primitives_torch.py")
+    spec = importlib.util.spec_from_file_location("bench_sort_primitives_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_primitives() -> tuple[dict, dict]:
+    """Returns ({candidate: row}, {launch counter: launches of the tool's run})."""
+    import torch
+
+    from subphaser_torch.ops import sort_primitives as sp
+    from subphaser_torch.ops import sort_smem
+
+    tool = load_tool()
+    for name in sp.launches:
+        sp.launches[name] = 0
+    tool_rows = tool.main([])
+    launches = dict(sp.launches)
+    idle = [name for name, count in launches.items() if count <= 0]
+    if idle:
+        raise RuntimeError(f"the tool's run launched no kernel of {idle}")
+
+    x_tool = tool.make_input(tool.N_BLOCKS, torch.device("cuda")) ^ 1
+    n = x_tool.numel()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    x_full = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+    x_full[::1001] = -(1 << 31)
+    plains = sp.plain_versions()
+    rows = {}
+    for name, fn in sp.candidates().items():
+        err = 0
+        for x in (x_tool, x_full):
+            got, want = fn(x), plains[name](x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"primitive {name} disagrees with its plain version")
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            del got, want
+        rows[name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fn(x_tool)),
+            "plain_ms": time_ms(lambda: plains[name](x_tool), 3),
+            "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
+            "tool_ms": tool_rows[name]["ms"],
+        }
+        log(f"primitive {name} " + json.dumps(rows[name]))
+    log(f"primitive torch_sort tool_ms={tool_rows['torch_sort']['ms']}")
+    if not torch.equal(sp.block_sort_unrolled(x_full), sort_smem.block_sort(x_full)):
+        raise RuntimeError("block_sort_unrolled disagrees with block_sort")
+    halves = x_tool.view(tool.N_BLOCKS, 2, -1)
+    bitonic = torch.cat([halves[:, 0].sort(dim=1).values,
+                         halves[:, 1].sort(dim=1, descending=True).values], dim=1)
+    got = sp.block_map("descent18", bitonic.reshape(-1)).view(tool.N_BLOCKS, -1)
+    if not torch.equal(got, bitonic.sort(dim=1).values):
+        raise RuntimeError("descent18 of a bitonic block disagrees with torch.sort")
+    del x_tool, x_full, halves, bitonic, got
+    torch.cuda.empty_cache()
+    log(f"phase primitives ok: {len(rows)} candidates bit-exact at n = {n}; "
+        f"tool launches {json.dumps(launches)}")
+    return rows, launches
+
+
 def gen_genome(out: str, n_sets: int, chrom_mb: float) -> tuple[str, str]:
     os.makedirs(out, exist_ok=True)
     subprocess.run(
@@ -171,36 +266,46 @@ def check_phased(assign: dict[str, tuple[str, int]]) -> None:
 
 def phase_parity() -> None:
     fa, cfg = gen_genome(os.path.join(WORK, "small"), 2, 2)
-    args = ("-min_freq", "4", "-lower_count", "2", "-tile_bases", str(1 << 20),
-            "-replicates", "100")
-    gpu = run_cli(fa, cfg, os.path.join(WORK, "small", "cuda"), *args)
-    cpu = run_cli(fa, cfg, os.path.join(WORK, "small", "cpu"), *args, "-device", "cpu")
-    for suffix in CORE_FILES:
-        if suffix == ".chrom-subgenome.tsv":
-            continue
-        with open(gpu.para_prefix + suffix, "rb") as a, open(cpu.para_prefix + suffix, "rb") as b:
-            if a.read() != b.read():
-                raise RuntimeError(f"{suffix} differs between cuda and cpu runs")
-    a_gpu, a_cpu = read_assignments(gpu), read_assignments(cpu)
-    if {c: v[0] for c, v in a_gpu.items()} != {c: v[0] for c, v in a_cpu.items()}:
-        raise RuntimeError(f"assignments differ: cuda {a_gpu} cpu {a_cpu}")
-    check_phased(a_gpu)
-    log("phase parity ok: 12 Mb genome, cuda == cpu on the five count/map/enrich "
-        "files and the assignments")
+    for k in (15, 17):
+        args = ("-k", str(k), "-min_freq", "4", "-lower_count", "2",
+                "-tile_bases", str(1 << 20), "-replicates", "100")
+        gpu = run_cli(fa, cfg, os.path.join(WORK, "small", f"cuda{k}"), *args)
+        cpu = run_cli(fa, cfg, os.path.join(WORK, "small", f"cpu{k}"), *args, "-device", "cpu")
+        for suffix in CORE_FILES:
+            if suffix == ".chrom-subgenome.tsv":
+                continue
+            with open(gpu.para_prefix + suffix, "rb") as a, \
+                    open(cpu.para_prefix + suffix, "rb") as b:
+                if a.read() != b.read():
+                    raise RuntimeError(f"k={k}: {suffix} differs between cuda and cpu runs")
+        a_gpu, a_cpu = read_assignments(gpu), read_assignments(cpu)
+        if {c: v[0] for c, v in a_gpu.items()} != {c: v[0] for c, v in a_cpu.items()}:
+            raise RuntimeError(f"k={k}: assignments differ: cuda {a_gpu} cpu {a_cpu}")
+        check_phased(a_gpu)
+    log("phase parity ok: 12 Mb genome at k = 15 and k = 17, cuda == cpu on the five "
+        "count/map/enrich files and the assignments")
 
 
-def phase_main() -> dict:
+def phase_main(k: int = 15) -> dict:
+    """The 480 Mb run at ``k``: phase ``main`` (k = 15, int32 codes, dense
+    mapping table) or ``main_k17`` (pair codes, searchsorted mapping)."""
     import torch
 
     from subphaser_torch.ops import sort_smem
 
-    t0 = time.perf_counter()
-    fa, cfg = gen_genome(os.path.join(WORK, "main"), MAIN_SETS, MAIN_CHROM_MB)
-    log(f"main genome generated in {time.perf_counter() - t0:.1f} s")
+    phase = "main" if k == 15 else f"main_k{k}"
+    genome_dir = os.path.join(WORK, "main")
+    fa = os.path.join(genome_dir, f"genome14_1_{MAIN_SETS}.fa")
+    cfg = os.path.join(genome_dir, "sg14.config")
+    if not os.path.exists(fa):
+        t0 = time.perf_counter()
+        fa, cfg = gen_genome(genome_dir, MAIN_SETS, MAIN_CHROM_MB)
+        log(f"main genome generated in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sort_smem.launches = 0
     t0 = time.perf_counter()
-    pipe = run_cli(fa, cfg, os.path.join(WORK, "main"), "-min_freq", "200")
+    pipe = run_cli(fa, cfg, os.path.join(WORK, phase), "-k", str(k), "-min_freq", "200")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sort_smem.launches
@@ -208,10 +313,14 @@ def phase_main() -> dict:
         if not os.path.getsize(pipe.para_prefix + suffix):
             raise RuntimeError(f"empty output {suffix}")
     check_phased(read_assignments(pipe))
-    if not pipe.map_dense:
-        raise RuntimeError("the dense mapping path did not run")
+    if pipe.map_dense != (k <= 15):
+        raise RuntimeError(f"{phase}: wrong mapping path (dense={pipe.map_dense})")
     if launches <= 0:
-        raise RuntimeError("the sort kernel was not launched on the main path")
+        raise RuntimeError(f"the sort kernel was not launched on the {phase} path")
+    with open(pipe.para_prefix + ".sig.kmer-subgenome.tsv") as f:
+        kmers = [line.split("\t", 1)[0] for line in f if not line.startswith("#")]
+    if not kmers or any(len(km) != k or set(km) - set("ACGT") for km in kmers):
+        raise RuntimeError(f"{phase}: significant k-mers are not {k} letters of ACGT")
     mbp = pipe.genome.total_bases() / 1e6
     steps = {k: round(v, 3) for k, v in pipe.step_seconds.items()}
     result = {
@@ -222,10 +331,12 @@ def phase_main() -> dict:
         "map_mbp_per_s": mbp / pipe.step_seconds["map"],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "sort_launches": launches,
+        "sig_kmers": len(kmers),
         "assignments": read_assignments(pipe),
     }
-    log("main " + json.dumps(result))
-    log(f"phase main ok: {mbp:.0f} Mb phased, dense mapping, {launches} sort launches")
+    log(f"{phase} " + json.dumps(result))
+    log(f"phase {phase} ok: {mbp:.0f} Mb phased at k = {k}, "
+        f"{'dense' if pipe.map_dense else 'searchsorted'} mapping, {launches} sort launches")
     return result
 
 
@@ -244,8 +355,10 @@ def main() -> int:
     try:
         phase_build()
         sort_rows = phase_sort()
+        prim_rows, prim_launches = phase_primitives()
         phase_parity()
-        main_res = phase_main()
+        main_res = phase_main(15)
+        k17_res = phase_main(17)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
@@ -254,19 +367,42 @@ def main() -> int:
     ).stdout.strip()
     log(smi)
     row = sort_rows[1 << 27]
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "bitonic_sort_int32",
         "route": "cuda",
         "source": "subphaser_torch/csrc/bitonic_sort.cu",
-        "replaces": tpu_kernel_site(),
+        "replaces": tpu_kernel_site(SORT_VMEM, "def _block_sort_kernel_grid"),
         "launches": main_res["sort_launches"],
+        "launches_by_path": {"main": main_res["sort_launches"],
+                             "main_k17": k17_res["sort_launches"]},
         "max_abs_err": row["max_abs_err"],
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": row["library_ms"],
-    }]}))
+    }]
+    # one entry per kernel of the primitives path; block_map's own numbers
+    # are its full descent (descent18), every candidate's are inside
+    for name, (pattern, needle, cand_names) in PRIMITIVE_KERNELS.items():
+        cands = {c: prim_rows[c] for c in cand_names}
+        lead = cands[cand_names[0]]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "subphaser_torch/csrc/sort_primitives.cu",
+            "replaces": tpu_kernel_site(pattern, needle),
+            "launches": prim_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in cands.values()),
+            "ms": lead["ms"],
+            "plain_ms": lead["plain_ms"],
+            "bound_ms": lead["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "candidates": cands,
+        })
+    kernels[1]["block_sort_ms"] = prim_rows["block_sort"]["ms"]  # the looped twin
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -126,6 +126,19 @@ extern "C" int bitonic_sort_int32(void* x_ptr, int total_bits, void* stream_ptr)
     return 0;
 }
 
+// Phase (a) alone, in place: what the unrolled block sort of
+// sort_primitives.cu is held against.
+extern "C" int bitonic_block_sort_int32(void* x_ptr, int total_bits, void* stream_ptr) {
+    if (total_bits < 1 || total_bits > 31) return (int)cudaErrorInvalidValue;
+    const long long n = 1LL << total_bits;
+    const int local_bits = total_bits < BLK_BITS ? total_bits : BLK_BITS;
+    const int nloc = 1 << local_bits;
+    const int threads = (nloc >> 1) < THREADS ? (nloc >> 1) : THREADS;
+    block_sort<<<(unsigned)(n / nloc), threads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+        static_cast<int*>(x_ptr), local_bits);
+    return (int)cudaGetLastError();
+}
+
 extern "C" const char* bitonic_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }

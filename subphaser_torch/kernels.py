@@ -19,7 +19,10 @@ import time
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = {"bitonic_sort": os.path.join(PKG_DIR, "csrc", "bitonic_sort.cu")}
+SOURCES = {
+    "bitonic_sort": os.path.join(PKG_DIR, "csrc", "bitonic_sort.cu"),
+    "sort_primitives": os.path.join(PKG_DIR, "csrc", "sort_primitives.cu"),
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,177 @@
+"""Sort-based counting for pair codes (k in [16, 31]).
+
+Mirror of ops/count.py with (hi, lo) int32 key pairs at every function's
+boundary, as in the JAX package. Inside, a pair is the single int64 key
+``hi << 31 | lo``: the JAX package's two-key sorts (XLA's, outside any
+hand-written kernel) become ``torch.sort`` on that key, run boundaries
+compare it, and the host gets int64 codes. The pad is the pair
+(SENTINEL, SENTINEL) = PAD64, which sorts last; pad tests look at the hi
+word only, which is exact for canonical codes even at k = 31 (see
+ops/kmer_pair). Compaction keeps the survivors of a sorted array with a
+boolean mask, which yields the same bits as the JAX package's sort-based
+compaction: survivors of a sorted array are already in order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from subphaser_torch.ops.count import _pad_to, merge_host
+from subphaser_torch.ops.kmer import SENTINEL
+from subphaser_torch.ops.kmer_pair import PAD64, combine64_t, kmer_codes64, split64_t
+
+
+def _is_pad(code: torch.Tensor) -> torch.Tensor:
+    return (code >> 31) == SENTINEL
+
+
+def _sorted_pair_survivors(s: torch.Tensor, lower: int):
+    """Sorted int64 codes -> (keep mask at run ends, int32 run lengths,
+    survivor count)."""
+    n = s.numel()
+    iota = torch.arange(n, dtype=torch.int32, device=s.device)
+    start = torch.ones(n, dtype=torch.bool, device=s.device)
+    start[1:] = s[1:] != s[:-1]
+    end = torch.ones(n, dtype=torch.bool, device=s.device)
+    end[:-1] = s[:-1] != s[1:]
+    last_start = torch.cummax(torch.where(start, iota, -1), 0).values
+    runlen = iota - last_start + 1
+    keep = end & (runlen >= lower) & ~_is_pad(s)
+    return keep, runlen, keep.sum()
+
+
+def _compact_survivors_pair(s, keep, run_tot, cap: int):
+    """Survivor (hi, lo, counts), pad-pair/0-padded or cut to ``cap``."""
+    hi, lo = split64_t(_pad_to(s[keep], cap, PAD64))
+    return hi, lo, _pad_to(run_tot[keep].to(torch.int32), cap, 0)
+
+
+def _codes64_batch(words, vwords, k: int, n_pos_words: int) -> torch.Tensor:
+    if words.dim() == 1:
+        return kmer_codes64(words, vwords, k, n_pos_words).reshape(-1)
+    return torch.cat([kmer_codes64(w, v, k, n_pos_words).reshape(-1)
+                      for w, v in zip(words, vwords)])
+
+
+def sort_rle_pair(hi: torch.Tensor, lo: torch.Tensor):
+    """Sort + scan RLE + compaction (full width): (hi, lo, counts)."""
+    return _sort_rle64(combine64_t(hi.reshape(-1), lo.reshape(-1)))
+
+
+def _sort_rle64(code: torch.Tensor):
+    s = torch.sort(code).values
+    keep, runlen, _m = _sorted_pair_survivors(s, 1)
+    return _compact_survivors_pair(s, keep, runlen, s.numel())
+
+
+def count_tile_batch_pair(words, vwords, k: int, n_pos_words: int):
+    """(T, n_words) packed tiles -> one merged pair spectrum."""
+    return _sort_rle64(_codes64_batch(words, vwords, k, n_pos_words))
+
+
+def extract_pair_codes_batch(words, vwords, k: int, n_pos_words: int):
+    """(T, n_words) packed tiles -> flat (hi, lo) canonical pair codes."""
+    return split64_t(_codes64_batch(words, vwords, k, n_pos_words))
+
+
+def _merge_sorted_runs_pair(code, counts, lower: int):
+    """Sort (code, count) pairs and compute run totals: (sorted codes,
+    int32 run totals, keep mask at run ends, survivor count)."""
+    code, order = torch.sort(code, stable=True)
+    counts = counts[order]
+    n = code.numel()
+    start = torch.ones(n, dtype=torch.bool, device=code.device)
+    start[1:] = code[1:] != code[:-1]
+    end = torch.ones(n, dtype=torch.bool, device=code.device)
+    end[:-1] = code[:-1] != code[1:]
+    csum = torch.cumsum(counts, 0, dtype=torch.int64)
+    base = torch.cummax(torch.where(start, csum - counts, -1), 0).values
+    run_tot = csum - base
+    keep = end & (run_tot >= lower) & ~_is_pad(code) & (run_tot > 0)
+    return code, run_tot.to(torch.int32), keep, keep.sum()
+
+
+def _concat_pad_pow2(parts):
+    """Concat (hi, lo) parts into int64 codes, PAD64-padded to a power of
+    two."""
+    hi = torch.cat([p[0].reshape(-1) for p in parts])
+    lo = torch.cat([p[1].reshape(-1) for p in parts])
+    total = hi.numel()
+    cap = 1 << max(total - 1, 1).bit_length()
+    return _pad_to(combine64_t(hi, lo), cap, PAD64)
+
+
+def _out_cap(m: int, n: int) -> int:
+    return min(max(1 << max(m - 1, 1).bit_length(), 1 << 10), n)
+
+
+def merge_rle_many_pair(parts, lower_count: int = 1):
+    """Merge pair spectra in one sort, compacted to the (pow2-bucketed)
+    survivor count (see count.merge_rle_many)."""
+    if len(parts) == 1 and lower_count <= 1:
+        return parts[0]
+    code = _concat_pad_pow2(parts)
+    counts = _pad_to(torch.cat([p[2] for p in parts]), code.numel(), 0)
+    s, run_tot, keep, m = _merge_sorted_runs_pair(code, counts, lower_count)
+    return _compact_survivors_pair(s, keep, run_tot, _out_cap(int(m), s.numel()))
+
+
+def _to_host(hi, lo, counts) -> tuple[np.ndarray, np.ndarray]:
+    """Device (hi, lo, counts) -> host (int64 codes, int64 counts), pad
+    entries dropped."""
+    code = combine64_t(hi, lo)
+    m = ~_is_pad(code)
+    return code[m].cpu().numpy(), counts[m].cpu().numpy().astype(np.int64)
+
+
+def count_pair_codes_threshold(parts, lower_count: int):
+    """Raw (hi, lo) code parts -> host (int64 codes, int64 counts) with
+    count >= lower_count: one sort over the chromosome, scan RLE, one
+    right-sized compaction."""
+    if not parts:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    s = torch.sort(_concat_pad_pow2(parts)).values
+    keep, runlen, m = _sorted_pair_survivors(s, lower_count)
+    return _to_host(*_compact_survivors_pair(s, keep, runlen, _out_cap(int(m), s.numel())))
+
+
+class PairSpectrumAccumulator:
+    """Pair-code version of SpectrumAccumulator; finish() returns int64 codes."""
+
+    def __init__(self, device_budget: int = 1 << 28):
+        self.device_budget = device_budget
+        self.parts: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
+        self.pending = 0
+        self.spilled: list[tuple[np.ndarray, np.ndarray]] = []
+
+    def add(self, hi, lo, counts) -> None:
+        self.parts.append((hi, lo, counts))
+        self.pending += hi.numel()
+        if self.pending > self.device_budget:
+            merged = merge_rle_many_pair(self.parts)
+            self.parts = [merged]
+            self.pending = merged[0].numel()
+            if self.pending > self.device_budget:
+                self.spilled.append(_to_host(*merged))
+                self.parts = []
+                self.pending = 0
+
+    def finish(self, lower_count: int = 1) -> tuple[np.ndarray, np.ndarray]:
+        """Merge everything; apply the per-chromosome dump threshold."""
+        if not self.spilled and lower_count > 1 and self.parts:
+            merged = merge_rle_many_pair(self.parts, lower_count)
+            self.parts = []
+            self.pending = 0
+            return _to_host(*merged)
+        parts = list(self.spilled)
+        if self.parts:
+            parts.append(_to_host(*merge_rle_many_pair(self.parts)))
+        self.parts = []
+        self.pending = 0
+        self.spilled = []
+        codes, counts = merge_host(parts)
+        if lower_count > 1:
+            keep = counts >= lower_count
+            codes, counts = codes[keep], counts[keep]
+        return codes, counts

@@ -1,0 +1,238 @@
+"""Compare-exchange primitives of the bitonic sort: CUDA kernels and their
+plain PyTorch versions.
+
+Counterparts of the four Pallas kernels the JAX package keeps beside its
+VMEM sort, each computing its TPU kernel's function on a flat int32 array
+of whole 2^18-key blocks (the TPU's VMEM block, (2048, 128)):
+
+- K3 ``_block_sort_kernel`` (ops/sort_vmem.py) -> :func:`block_sort_unrolled`:
+  every bitonic phase of a block in one straight-line program. The port's
+  block is 2^13 keys (ops/sort_smem.BLK_BITS), so it gives the same bits as
+  ``sort_smem.block_sort``, the looped kernel of the production sort.
+- K4 ``pallas_block_map(body)`` (tools/bench_sort_primitives.py), one body
+  per candidate -> :func:`block_map`, same candidate names.
+- K5 ``_descent_masked`` -> :func:`descent_masked`.
+- K6 ``_descent_grid2d`` -> :func:`descent_grid2d`.
+
+A CPU tensor takes the plain version; a CUDA tensor launches
+``csrc/sort_primitives.cu`` or raises. ``launches[name]`` counts the calls
+that launched a kernel.
+
+Where a stage's partner lives on the card (the analogue of the TPU's
+lane-roll / sublane-reshape / sublane-roll lowerings), by stride 2^b on a
+contiguous 2^13-key tile: b 0..1 the thread's own registers, b 2..6 a warp
+shuffle, b 7..12 shared memory, b >= 13 one pass over device memory.
+So the candidates exercise:
+
+==========================  ===========================================
+passthrough                 device memory -> shared memory -> device memory
+elementwise30               registers only (30 dependent max(x, x - 1))
+lane_roll_stages            6 register + 12 shuffle stages, one launch
+sublane_reshape_small       18 shared-memory stages, one launch
+sublane_reshape_vreg        8 shared-memory + 10 device-memory stages
+sublane_roll_stages         12 shared-memory + 6 device-memory stages
+transpose8                  shared memory (8 transposes of 128 x 128 tiles)
+descent18                   5 device-memory, 6 shared, 5 shuffle, 2 register
+descent18_masked (K5)       2 shared, 5 shuffle, 2 register, one launch
+descent18_grid2d (K6)       strided 2^11-key tile resident in shared memory:
+                            4 x (9 shared + 6 shuffle + 3 register), one launch
+==========================  ===========================================
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from subphaser_torch.ops.sort_smem import (
+    BLK_BITS,
+    _check_tensor,
+    _checked_bits,
+    _stage,
+    block_sort_plain,
+)
+
+BLOCK_BITS = 18          # the TPU kernels' block: (2048, 128) int32
+BLOCK = 1 << BLOCK_BITS
+N_STAGES = 18            # stages per candidate (one full descent's depth)
+_ASCENDING = 62          # _stage's phase whose direction bit is never set
+
+# K4: stride bits of the candidates that are lists of ascending stages
+STAGE_BITS = {
+    "passthrough": [],
+    "lane_roll_stages": [i % 7 for i in range(N_STAGES)],
+    "sublane_reshape_vreg": [10 + i % 8 for i in range(N_STAGES)],
+    "sublane_reshape_small": [7 + i % 3 for i in range(N_STAGES)],
+    "sublane_roll_stages": [7 + i % 11 for i in range(N_STAGES)],
+    "descent18": list(range(BLOCK_BITS - 1, -1, -1)),
+}
+BLOCK_MAP_CANDIDATES = [
+    "passthrough", "elementwise30", "lane_roll_stages", "sublane_reshape_vreg",
+    "sublane_reshape_small", "sublane_roll_stages", "transpose8", "descent18",
+]
+ELEMENTWISE_ITERS = 30
+TRANSPOSE_REPS = 8
+MASKED_P = 9             # K5: stages below 2^9 run, direction = index bit 9
+MASKED_BITS = list(range(MASKED_P - 1, -1, -1))
+GRID2D_REVISITS = 4      # K6
+GRID2D_BITS = [i % 7 if i % 2 else 10 + i % 8 for i in range(N_STAGES)]
+
+launches = {"block_sort_unrolled": 0, "block_map": 0, "descent_masked": 0,
+            "descent_grid2d": 0}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _stages_plain(x: torch.Tensor, bits, p: int = _ASCENDING) -> torch.Tensor:
+    y = x.reshape(-1).clone()
+    for sb in bits:
+        y = _stage(y, sb, p)
+    return y
+
+
+def _max_dec(x: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(x, x - 1)  # x - 1 wraps at int32 min
+
+
+def block_map_plain(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Candidate ``name`` of K4 in plain PyTorch."""
+    if name in STAGE_BITS:
+        return _stages_plain(x, STAGE_BITS[name])
+    if name == "elementwise30":
+        y = x.reshape(-1)
+        for _ in range(ELEMENTWISE_ITERS):
+            y = _max_dec(y)
+        return y
+    if name == "transpose8":
+        y = x.reshape(-1, 128, 128)
+        for _ in range(TRANSPOSE_REPS):
+            y = _max_dec(y.transpose(1, 2))
+        return y.reshape(-1)
+    raise ValueError(f"unknown block_map candidate {name!r}")
+
+
+def descent_masked_plain(x: torch.Tensor) -> torch.Tensor:
+    """K5: of the strides 2^17..1 only those below 2^9 run; a pair sorts
+    descending where bit 9 of its index is set."""
+    return _stages_plain(x, MASKED_BITS, MASKED_P)
+
+
+def descent_grid2d_plain(x: torch.Tensor) -> torch.Tensor:
+    """K6: four revisits of 18 ascending stages alternating the strides
+    2^(10 + i % 8) (even i) and 2^(i % 7) (odd i)."""
+    return _stages_plain(x, GRID2D_BITS * GRID2D_REVISITS)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+def _lib():
+    from subphaser_torch import kernels
+
+    lib = kernels.load("sort_primitives")
+    if lib.sp_tile_bits() != BLK_BITS:
+        raise RuntimeError("sort_primitives library was built with another tile size")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sp_block_sort_unrolled.argtypes = [ptr, ptr, i32, ptr]
+    lib.sp_run_stages.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
+    lib.sp_run_stages_resident.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
+    lib.sp_elementwise_chain.argtypes = [ptr, ptr, i64, i32, ptr]
+    lib.sp_transpose_tiles.argtypes = [ptr, ptr, i64, i32, ptr]
+    for fn in (lib.sp_block_sort_unrolled, lib.sp_run_stages, lib.sp_run_stages_resident,
+               lib.sp_elementwise_chain, lib.sp_transpose_tiles):
+        fn.restype = ctypes.c_int
+    lib.sp_error_string.argtypes = [i32]
+    lib.sp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(counter: str, entry: str, x: torch.Tensor, *args) -> torch.Tensor:
+    """Calls the library's ``entry(src, dst, *args, stream)`` with ``x`` as
+    src and a new tensor as dst, which it returns."""
+    lib = _lib()
+    src = x.contiguous()
+    dst = torch.empty_like(src)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = getattr(lib, entry)(src.data_ptr(), dst.data_ptr(), *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: " + lib.sp_error_string(err).decode())
+    launches[counter] += 1
+    return dst
+
+
+def _checked_blocks(name: str, x: torch.Tensor) -> int:
+    """Validates a flat int32 array of whole 2^18-key blocks; returns n."""
+    _check_tensor(name, x)
+    n = x.numel()
+    if n == 0 or n % BLOCK:
+        raise ValueError(f"{name} needs whole blocks of {BLOCK} keys, got {n}")
+    return n
+
+
+def block_sort_unrolled(x: torch.Tensor) -> torch.Tensor:
+    """K3: bitonic phases 1..BLK_BITS of every 2^BLK_BITS-key block of a
+    power-of-two int32 array, unrolled at compile time, in one launch."""
+    total_bits = _checked_bits("block_sort_unrolled", x)
+    if x.device.type == "cpu":
+        return block_sort_plain(x)
+    return _launch("block_sort_unrolled", "sp_block_sort_unrolled", x, total_bits)
+
+
+def block_map(name: str, x: torch.Tensor) -> torch.Tensor:
+    """K4: candidate ``name`` over every block of ``x``."""
+    if name not in BLOCK_MAP_CANDIDATES:
+        raise ValueError(f"unknown block_map candidate {name!r}")
+    n = _checked_blocks("block_map", x)
+    if x.device.type == "cpu":
+        return block_map_plain(name, x)
+    if name == "elementwise30":
+        return _launch("block_map", "sp_elementwise_chain", x, n, ELEMENTWISE_ITERS)
+    if name == "transpose8":
+        return _launch("block_map", "sp_transpose_tiles", x, n, TRANSPOSE_REPS)
+    bits = STAGE_BITS[name]
+    return _launch("block_map", "sp_run_stages", x, n, bytes(bits), len(bits), -1)
+
+
+def descent_masked(x: torch.Tensor) -> torch.Tensor:
+    """K5 (see :func:`descent_masked_plain`)."""
+    n = _checked_blocks("descent_masked", x)
+    if x.device.type == "cpu":
+        return descent_masked_plain(x)
+    return _launch("descent_masked", "sp_run_stages", x, n, bytes(MASKED_BITS),
+                   len(MASKED_BITS), MASKED_P)
+
+
+def descent_grid2d(x: torch.Tensor) -> torch.Tensor:
+    """K6 (see :func:`descent_grid2d_plain`); the revisits are a loop
+    inside one launch, the tile staying in shared memory between them."""
+    n = _checked_blocks("descent_grid2d", x)
+    if x.device.type == "cpu":
+        return descent_grid2d_plain(x)
+    return _launch("descent_grid2d", "sp_run_stages_resident", x, n, bytes(GRID2D_BITS),
+                   len(GRID2D_BITS), GRID2D_REVISITS)
+
+
+def candidates() -> dict:
+    """Every candidate of the sort-primitives tool, by the JAX tool's names
+    (plus the two block sorts): name -> function of a flat int32 tensor."""
+    from subphaser_torch.ops.sort_smem import block_sort
+
+    fns = {name: (lambda x, _n=name: block_map(_n, x)) for name in BLOCK_MAP_CANDIDATES}
+    fns["descent18_masked"] = descent_masked
+    fns["descent18_grid2d"] = descent_grid2d
+    fns["block_sort"] = block_sort
+    fns["block_sort_unrolled"] = block_sort_unrolled
+    return fns
+
+
+def plain_versions() -> dict:
+    """name -> plain PyTorch version, same keys as :func:`candidates`."""
+    fns = {name: (lambda x, _n=name: block_map_plain(_n, x)) for name in BLOCK_MAP_CANDIDATES}
+    fns["descent18_masked"] = descent_masked_plain
+    fns["descent18_grid2d"] = descent_grid2d_plain
+    fns["block_sort"] = block_sort_plain
+    fns["block_sort_unrolled"] = block_sort_plain
+    return fns

@@ -66,14 +66,23 @@ def _descent(y: torch.Tensor, p: int, blk_bits: int) -> torch.Tensor:
     return y
 
 
+def block_sort_plain(x: torch.Tensor, blk_bits: int = BLK_BITS) -> torch.Tensor:
+    """Phase (a) alone: bitonic phases 1..blk_bits inside each block of
+    2^blk_bits keys, the direction of a pair from bit p of its global index
+    (so blocks alternate ascending / descending after the last phase, and
+    an array of one block comes out ascending)."""
+    y = x.reshape(-1).clone()
+    for p in range(1, min(_pow2_bits(y.numel()), blk_bits) + 1):
+        for sb in range(p - 1, -1, -1):
+            y = _stage(y, sb, p)
+    return y
+
+
 def bitonic_sort_plain(x: torch.Tensor, blk_bits: int = BLK_BITS) -> torch.Tensor:
     """The kernel's network in plain PyTorch (no torch.sort), any device."""
     t = _pow2_bits(x.numel())
-    y = x.reshape(-1).clone()
     local = min(t, blk_bits)
-    for p in range(1, local + 1):          # (a) block sort
-        for sb in range(p - 1, -1, -1):
-            y = _stage(y, sb, p)
+    y = block_sort_plain(x, blk_bits)      # (a) block sort
     for p in range(local + 1, t + 1):
         for sb in range(p - 1, local - 1, -1):  # (b) global stages
             y = _stage(y, sb, p)
@@ -81,12 +90,14 @@ def bitonic_sort_plain(x: torch.Tensor, blk_bits: int = BLK_BITS) -> torch.Tenso
     return y
 
 
-def _kernel_sort(x: torch.Tensor, total_bits: int) -> torch.Tensor:
+def _kernel_call(entry: str, x: torch.Tensor, total_bits: int) -> torch.Tensor:
+    """Copy ``x`` and run the library's in-place ``entry`` on the copy."""
     from subphaser_torch import kernels
 
     lib = kernels.load("bitonic_sort")
-    lib.bitonic_sort_int32.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.bitonic_sort_int32.restype = ctypes.c_int
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.bitonic_error_string.argtypes = [ctypes.c_int]
     lib.bitonic_error_string.restype = ctypes.c_char_p
     if lib.bitonic_blk_bits() != BLK_BITS:
@@ -94,27 +105,45 @@ def _kernel_sort(x: torch.Tensor, total_bits: int) -> torch.Tensor:
     y = x.reshape(-1).clone(memory_format=torch.contiguous_format)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.bitonic_sort_int32(y.data_ptr(), total_bits, stream)
+        err = fn(y.data_ptr(), total_bits, stream)
     if err != 0:
         raise RuntimeError(
-            "bitonic_sort_int32 launch failed: "
-            + lib.bitonic_error_string(err).decode())
-    global launches
-    launches += 1
+            f"{entry} launch failed: " + lib.bitonic_error_string(err).decode())
     return y
+
+
+def _check_tensor(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.int32 or x.dim() != 1:
+        raise ValueError(f"{name} needs a 1-D int32 tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _checked_bits(name: str, x: torch.Tensor) -> int:
+    _check_tensor(name, x)
+    return _pow2_bits(x.numel())
 
 
 def sort_int32_pow2(x: torch.Tensor) -> torch.Tensor:
     """Ascending sort of a 1-D int32 tensor whose size is a power of two
     (>= 2). Callers pad with SENTINEL (int32 max), which trails."""
-    if x.dtype != torch.int32 or x.dim() != 1:
-        raise ValueError(f"sort_int32_pow2 needs a 1-D int32 tensor, got {x.dtype} {tuple(x.shape)}")
-    total_bits = _pow2_bits(x.numel())
-    if x.device.type == "cuda":
-        return _kernel_sort(x, total_bits)
+    total_bits = _checked_bits("sort_int32_pow2", x)
     if x.device.type == "cpu":
         return bitonic_sort_plain(x)
-    raise ValueError(f"sort_int32_pow2: unsupported device {x.device}")
+    y = _kernel_call("bitonic_sort_int32", x, total_bits)
+    global launches
+    launches += 1
+    return y
+
+
+def block_sort(x: torch.Tensor) -> torch.Tensor:
+    """Phase (a) of the sort alone (see :func:`block_sort_plain`): the
+    looped kernel that the unrolled block sort of ops/sort_primitives is
+    held against. Not counted in ``launches`` (no whole sort)."""
+    total_bits = _checked_bits("block_sort", x)
+    if x.device.type == "cpu":
+        return block_sort_plain(x)
+    return _kernel_call("bitonic_block_sort_int32", x, total_bits)
 
 
 def sort_int32(x: torch.Tensor) -> torch.Tensor:

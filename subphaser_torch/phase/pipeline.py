@@ -2,12 +2,12 @@
 with checkpoint/resume.
 
 Mirrors the reference Pipeline (reference __main__.py:250-729) step for step
-for core phasing (k <= 15, one device). The checkpoint files are the JAX
+for core phasing (k 1..31, one device). The checkpoint files are the JAX
 package's, so a run resumes from a tmpdir either package wrote.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item when asked for: k > 15 (A7), custom features (A8), LTR (A9), circos
-and homoeologous blocks (A11), several devices (A12), device traces (A14).
+item when asked for: custom features (A8), LTR (A9), circos and
+homoeologous blocks (A11), several devices (A12), device traces (A14).
 The core figures (histogram, heatmap, PCA) are the next slice; this module
 logs that they are not written.
 """
@@ -96,8 +96,6 @@ class Pipeline:
                 "(hi, lo) int32 pairs for 16 <= k <= 31"
             )
         todo = []
-        if self.k > 15:
-            todo.append("k > 15 (ROADMAP A7)")
         if self.n_devices and self.n_devices > 1:
             todo.append("several devices (ROADMAP A12)")
         if self.trace:
@@ -302,6 +300,20 @@ class Pipeline:
         n_sg = len(self.sg_names)
         dev = self.device
         meter = Throughput("kmer mapping", unit="Mbp").start()
+        if self.k > 15:
+            # pair codes: searchsorted into the int64 table, no dense table
+            # and (as in the JAX package) no per-chromosome checkpoints
+            from subphaser_torch.ops.mapbins_pair import map_genome_bins_pair, max_hi_run
+
+            logger.info("Pair-code table: longest run of equal hi words %d",
+                        max_hi_run(sig.codes))
+            self.map_dense = False
+            acc = map_genome_bins_pair(
+                self.genome, sig.codes, sig.sg, self.k,
+                self.tile_bases, BIN_SIZE, n_sg, device=dev,
+            )
+            self._log_mapped(meter, acc, sig)
+            return acc
         sizes = [c.length for c in self.genome.chroms]
         acc = BinAccumulator(sizes, BIN_SIZE, n_sg, device=dev)
         nbt = nbins_for_tile(self.tile_bases, BIN_SIZE)
@@ -388,6 +400,10 @@ class Pipeline:
             acc.add(ci, np.zeros((0, n_sg), np.int64), 0, snap)
             self.ckp.save(f"map_bins_{labels[ci]}", map_params,
                           bins=acc.per_chrom[ci], hits=snap)
+        self._log_mapped(meter, acc, sig)
+        return acc
+
+    def _log_mapped(self, meter: Throughput, acc: BinAccumulator, sig: SigKmers) -> None:
         meter.stop(self.genome.total_bases() / 1e6)
         meter.log()
         total = max(len(sig), 1)
@@ -395,7 +411,6 @@ class Pipeline:
             "Mapped %d kmer hits; %.2f%% of %d subgenome-specific kmers mapped",
             acc.mapped_positions, 100.0 * acc.mapped_kmer_count / total, total // 2,
         )
-        return acc
 
     def _final(self):
         if self.cleanup:

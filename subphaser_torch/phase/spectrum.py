@@ -6,9 +6,9 @@ applies the ``lower_count`` dump threshold (jellyfish ``dump -L``, reference
 Jellyfish.py:697-703), and assembles the sparse candidate count matrix the
 differential filter consumes (reference Jellyfish.py:439-460).
 
-This slice ports the single-process k <= 15 paths. k > 15 (ROADMAP A7) and
-multi-device / multi-process counting (ROADMAP A12) raise
-NotImplementedError.
+Single-process paths for every supported k: int32 codes for k <= 15, (hi, lo)
+pair codes (ops/count_pair) for 16 <= k <= 31. Multi-device / multi-process
+counting (ROADMAP A12) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +28,12 @@ from subphaser_torch.ops.count import (
     extract_codes_batch,
     merge_host,
 )
+from subphaser_torch.ops.count_pair import (
+    PairSpectrumAccumulator,
+    count_pair_codes_threshold,
+    count_tile_batch_pair,
+    extract_pair_codes_batch,
+)
 from subphaser_torch.utils.log import logger
 from subphaser_torch.utils.profiling import Throughput
 
@@ -35,7 +41,7 @@ from subphaser_torch.utils.profiling import Throughput
 @dataclass
 class ChromSpectrum:
     name: str
-    codes: np.ndarray   # int32 sorted unique canonical codes (count>=lower)
+    codes: np.ndarray   # sorted unique canonical codes (count>=lower): int32, int64 for k > 15
     counts: np.ndarray  # int64
     total: int          # sum of counts (== reference dump "tot" / lengths[i])
 
@@ -57,8 +63,6 @@ def count_genome(
     reference's -re_filter workflow, __main__.py:352-354) while any sequence
     edit invalidates it. The checkpoint files are the JAX package's format.
     """
-    if k > 15:
-        raise NotImplementedError("k > 15 counting is not ported yet (ROADMAP A7)")
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
@@ -118,7 +122,19 @@ def count_genome(
 
         tiles = chrom_tiles()
         n_positions = len(tiles) * 16 * n_pos_words
-        if n_positions <= device_budget:
+        if k > 15 and n_positions <= device_budget // 2:
+            # pair codes are two int32 words, so the fast path (one sort
+            # over the chromosome's raw codes) fits half the budget
+            parts = [extract_pair_codes_batch(w, v, k, n_pos_words)
+                     for w, v in batches_of(tiles)]
+            codes, counts = count_pair_codes_threshold(parts, lower_count)
+            del parts
+        elif k > 15:
+            pacc = PairSpectrumAccumulator(device_budget=device_budget)
+            for words, vwords in batches_of(tiles):
+                pacc.add(*count_tile_batch_pair(words, vwords, k, n_pos_words))
+            codes, counts = pacc.finish(lower_count)
+        elif n_positions <= device_budget:
             # fast path: hold the chromosome's raw codes on device and run
             # ONE keys-only sort
             def rebuild(tiles_=None):
@@ -159,7 +175,7 @@ def count_genome(
 
 @dataclass
 class KmerMatrix:
-    codes: np.ndarray    # int32 (B,) sorted candidate canonical codes
+    codes: np.ndarray    # (B,) sorted candidate canonical codes (int64 for k > 15)
     counts: np.ndarray   # int32 (B, C)
     tot: np.ndarray      # int64 (B,) genome-wide totals
     lengths: np.ndarray  # int64 (C,) per-chromosome totals

@@ -29,10 +29,13 @@ def genome_from_numpy(chroms) -> PackedGenome:
 
 
 def spectra_from_numpy(spectra) -> list[ChromSpectrum]:
-    """Iterable of (name, codes int32, counts int64, total) -> spectra."""
+    """Iterable of (name, codes, counts int64, total) -> spectra. Codes are
+    int32 for k <= 15 and stay int64 when given as int64 (pair codes, k > 15)."""
     return [
         ChromSpectrum(name=str(name),
-                      codes=np.ascontiguousarray(codes, dtype=np.int32),
+                      codes=np.ascontiguousarray(
+                          codes, dtype=np.int64 if np.asarray(codes).dtype == np.int64
+                          else np.int32),
                       counts=np.ascontiguousarray(counts, dtype=np.int64),
                       total=int(total))
         for name, codes, counts, total in spectra

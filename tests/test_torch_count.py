@@ -65,8 +65,15 @@ def test_spectrum_checkpoint_resumes_across_packages(genomes, tmp_path):
 
 
 def test_k_above_15_not_ported(genomes):
-    with pytest.raises(NotImplementedError, match="A7"):
-        t_count_genome(genomes[1], 17, device="cpu")
+    """Nothing above k = 15 is left unported: k = 16 and 31 count as pair
+    codes (int64 on the host) and equal the JAX package's spectra."""
+    jg, tg = genomes
+    for k in (16, 31):
+        js = j_count_genome(jg, k, lower_count=2, tile_bases=1 << 14)
+        ts = t_count_genome(tg, k, lower_count=2, tile_bases=1 << 14, device="cpu")
+        for a, b in zip(js, ts):
+            assert b.codes.dtype == np.int64 and a.total == b.total > 0
+            assert np.array_equal(a.codes, b.codes) and np.array_equal(a.counts, b.counts)
 
 
 @pytest.mark.parametrize("n", [1, 37, 1024, 5000])

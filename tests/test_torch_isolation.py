@@ -12,6 +12,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "subphaser_torch"
+TOOL = ROOT / "tools" / "bench_sort_primitives_torch.py"
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     for p in PORT.rglob("*.py") if p.name != "__main__.py"
@@ -28,6 +29,10 @@ def test_imports_with_jax_blocked():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "import subphaser_torch\n"
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location('tool', {str(TOOL)!r})\n"
+        "tool = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(tool)\n"
         "print('ok', len(sys.modules))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -38,8 +43,13 @@ def test_imports_with_jax_blocked():
 
 
 def test_no_jax_or_reference_package_in_sources():
-    files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files = (list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu"))
+             + [ROOT / "chip_smoke.py", TOOL, TOOL.with_name("profile_sort_primitives_torch.py"),
+                TOOL.with_name("ab_phase_main.py")])
+    assert len(files) > 25
+    names = {p.name for p in files}
+    assert {"kmer_pair.py", "count_pair.py", "mapbins_pair.py", "sort_primitives.py",
+            "sort_primitives.cu"} <= names
     for path in files:
         text = path.read_text()
         assert not _FORBIDDEN.search(text), path
@@ -76,3 +86,33 @@ def test_sort_wrapper_refuses_other_devices():
 
     with pytest.raises(ValueError, match="device"):
         sort_int32_pow2(torch.zeros(8, dtype=torch.int32, device="meta"))
+
+
+def test_primitive_wrappers_refuse_other_devices():
+    from subphaser_torch.ops import sort_primitives as sp
+    from subphaser_torch.ops.sort_smem import block_sort
+
+    x = torch.zeros(sp.BLOCK, dtype=torch.int32, device="meta")
+    for fn in (sp.block_sort_unrolled, sp.descent_masked, sp.descent_grid2d, block_sort,
+               lambda t: sp.block_map("passthrough", t)):
+        with pytest.raises(ValueError, match="device"):
+            fn(x)
+
+
+def test_tool_runs_on_the_card_only(monkeypatch):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench_sort_primitives_torch", TOOL)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tool.main(["passthrough"])
+
+
+def test_pair_code_entry_points_default_to_cuda():
+    import inspect
+
+    from subphaser_torch.ops.mapbins_pair import map_genome_bins_pair
+
+    assert inspect.signature(map_genome_bins_pair).parameters["device"].default == "cuda"

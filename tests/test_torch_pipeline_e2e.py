@@ -89,7 +89,7 @@ def test_cli_just_core(runs):
     (dict(disable_ltr=False), "A9"),
     (dict(disable_circos=False), "A11"),
     (dict(custom_features=["f.fa"]), "A8"),
-    (dict(k=17), "A7"),
+    (dict(custom_features=["f.fa"], disable_ltr=False), "A8.*A9"),
     (dict(n_devices=2), "A12"),
     (dict(trace="trace_dir"), "A14"),
 ])

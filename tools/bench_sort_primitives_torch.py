@@ -1,0 +1,96 @@
+"""Microbenchmark of bitonic-stage primitives on one CUDA card.
+
+The PyTorch port's counterpart of tools/bench_sort_primitives.py: the same
+candidates by the same names, at the same problem size (128 blocks of 2^18
+int32 = 33.5M keys), each a hand-written CUDA kernel of
+subphaser_torch/csrc/sort_primitives.cu behind its wrapper in
+subphaser_torch/ops/sort_primitives.py. It shows what a compare-exchange
+stage costs on the card by where the partner lives (registers, warp
+shuffle, shared memory, device memory); that module's docstring says which
+level each candidate exercises. ``torch_sort`` is the library yardstick
+(the JAX tool's ``lax_sort`` line). ``block_sort`` (the production sort's
+looped phase (a)) and ``block_sort_unrolled`` (its compile-time unrolled
+twin) run beside the JAX tool's candidates.
+
+Every iteration gets a fresh salt xor-ed into the input; a candidate's time
+is the median of 5 CUDA-event timings of the wrapper alone, after 2
+warm-up iterations; a position-weighted checksum of each result is
+printed so runs can be compared.
+
+Usage (needs a CUDA card; raises without one):
+
+    python tools/bench_sort_primitives_torch.py [candidate ...]
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from subphaser_torch.device import resolve_device  # noqa: E402
+from subphaser_torch.ops import sort_primitives as sp  # noqa: E402
+
+N_BLOCKS = 128  # 33.5M keys in all
+ITERS, WARMUP = 5, 2
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def make_input(n_blocks: int, device: torch.device) -> torch.Tensor:
+    rng = np.random.default_rng(0)
+    flat = rng.integers(0, 1 << 30, size=n_blocks * sp.BLOCK, dtype=np.int32)
+    return torch.from_numpy(flat).to(device)
+
+
+def bench(fn, x_base: torch.Tensor, iters: int = ITERS, warmup: int = WARMUP):
+    """(median seconds of ``fn(x_base ^ salt)``, checksum of the last result)."""
+    w = torch.arange(x_base.numel(), dtype=torch.int64, device=x_base.device) & 1023
+    times, checksum = [], 0
+    for i in range(warmup + iters):
+        x = x_base ^ (i + 1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        checksum = int(((y.to(torch.int64) & 0xFFFF) * w).sum())
+    return statistics.median(times[warmup:]), checksum
+
+
+def main(argv=None, n_blocks: int = N_BLOCKS) -> dict:
+    """Times the named candidates (all by default); returns
+    {name: {"ms", "ms_per_stage", "mkeys_per_s", "checksum"}}."""
+    names = list(sys.argv[1:] if argv is None else argv)
+    device = resolve_device("cuda")
+    fns = dict(sp.candidates(), torch_sort=lambda x: torch.sort(x).values)
+    unknown = [n for n in names if n not in fns]
+    if unknown:
+        raise SystemExit(f"unknown candidates {unknown}; known: {', '.join(fns)}")
+    x = make_input(n_blocks, device)
+    log(f"device: {torch.cuda.get_device_name(device)}, total elems: {x.numel() / 1e6:.1f}M")
+    results = {}
+    for name in names or list(fns):
+        t, checksum = bench(fns[name], x)
+        results[name] = {
+            "ms": t * 1e3,
+            "ms_per_stage": t * 1e3 / sp.N_STAGES,
+            "mkeys_per_s": x.numel() / t / 1e6,
+            "checksum": checksum,
+        }
+        log(f"{name:24s} run {t * 1e3:8.3f} ms ({x.numel() / t / 1e6:8.0f} M keys/s; "
+            f"{t * 1e3 / sp.N_STAGES:.4f} ms/stage) checksum {checksum}")
+    return results
+
+
+if __name__ == "__main__":
+    main()
