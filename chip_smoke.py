@@ -9,13 +9,21 @@ Phases, each printing one line; any failure raises and exits non-zero:
 
 1. build    compile every CUDA kernel of the port from csrc/ (nvcc, in
             parallel) and print the build seconds;
-2. sort     the bitonic sort kernel against its plain PyTorch network (on the
-            card) and against torch.sort, bit-exact, at n = 2, 2^10, 2^18
-            (half SENTINEL), 2^23 and 2^27; prints kernel/plain/library times
-            (CUDA events, median after a warm-up) and the bytes bound;
+2. sort     the production sort (block sort up to 2^13 keys, the radix kernel
+            above) against both plain PyTorch versions (the radix schedule
+            and the bitonic network, on the card) and against torch.sort,
+            bit-exact, at n = 2, 2^10, 2^18 (half SENTINEL), 2^23 and 2^27;
+            at 2^23 and 2^27 on three inputs: keys from n/8 values, full-range
+            keys with negatives, and 99.9% SENTINEL. Also the whole bitonic
+            sort kernel at every size against its plain network (timed at
+            2^23 and 2^27). Prints
+            kernel/plain/library times (CUDA events, median after a warm-up;
+            a plain version at 2^27 by the host clock of its one checking
+            call) and the bytes bound;
 3. primitives  the sort-primitives tool (tools/bench_sort_primitives_torch.py)
             at its full size, 128 blocks of 2^18 keys, with the launch counts
-            read around it; then every kernel behind it bit-exact against its
+            read around it (the whole bitonic and radix sorts are candidates
+            of it too); then every kernel behind it bit-exact against its
             plain version on the card (tool inputs and full-range keys),
             block_sort_unrolled also against block_sort, descent18 of a
             bitonic input against torch.sort; prints each kernel's and plain
@@ -117,42 +125,75 @@ def phase_build() -> None:
 
 
 def phase_sort() -> dict:
+    """Returns {"radix": {n: {input kind: row}}, "bitonic": {n: row}}."""
     import torch
 
     from subphaser_torch.ops import sort_smem
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2024)
-    rows = {}
+    sort_input = load_tool().sort_input
+    rows = {"radix": {}, "bitonic": {}}
     for n in SORT_SIZES:
-        # many duplicates: keys drawn from n/8 values
-        x = torch.randint(0, max(n // 8, 2), (n,), generator=gen, device="cuda",
-                          dtype=torch.int32)
-        if n == 1 << 18:
-            x[n // 2:] = sort_smem.SENTINEL
-        got = sort_smem.sort_int32_pow2(x)
-        plain = sort_smem.bitonic_sort_plain(x)
-        lib = torch.sort(x).values
-        torch.cuda.synchronize()
-        if not torch.equal(got, lib) or not torch.equal(got, plain):
-            raise RuntimeError(f"sort kernel disagrees at n={n}")
-        err = int((got.long() - lib.long()).abs().max())
         big = n >= 1 << 23
-        row = {
-            "n": n,
-            "max_abs_err": err,
-            "kernel_ms": time_ms(lambda: sort_smem.sort_int32_pow2(x)),
-            "library_ms": time_ms(lambda: torch.sort(x)),
-            "plain_ms": time_ms(lambda: sort_smem.bitonic_sort_plain(x), 3 if big else 5),
-            "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
-        }
-        rows[n] = row
-        for key, val in row.items():
-            if key != "n":
-                log(f"sort n={n} {key}={val}")
-        del x, got, plain, lib
+        huge = n >= 1 << 27
+        bound_ms = 8 * n / HBM_BYTES_PER_S * 1e3
+        rows["radix"][n] = {}
+        for kind in ("uniform", "full_range", "skewed") if big else ("uniform",):
+            x = sort_input(kind, n, "cuda")
+            if n == 1 << 18:
+                x[n // 2:] = sort_smem.SENTINEL
+            keep = x.clone()
+            got = sort_smem.sort_int32_pow2(x)
+            lib = torch.sort(x).values
+            torch.cuda.synchronize()
+            if not torch.equal(x, keep):
+                raise RuntimeError(f"the sort wrote its input at n={n} ({kind})")
+            del keep
+            # the plain versions are timed by the call that checks them
+            # where one call takes seconds
+            t0 = time.perf_counter()
+            ok = torch.equal(got, sort_smem.radix_sort_plain(x))
+            radix_plain_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ok = ok and torch.equal(got, sort_smem.bitonic_sort_plain(x))
+            bitonic_plain_ms = (time.perf_counter() - t0) * 1e3
+            if not ok or not torch.equal(got, lib):
+                raise RuntimeError(f"sort kernel disagrees at n={n} ({kind})")
+            row = {
+                "max_abs_err": int((got.long() - lib.long()).abs().max()),
+                "kernel_ms": time_ms(lambda: sort_smem.sort_int32_pow2(x)),
+                "library_ms": time_ms(lambda: torch.sort(x)),
+                "plain_ms": radix_plain_ms if huge else time_ms(
+                    lambda: sort_smem.radix_sort_plain(x), 1 if big else 3),
+                "bitonic_plain_ms": bitonic_plain_ms if huge else time_ms(
+                    lambda: sort_smem.bitonic_sort_plain(x), 3),
+                "bound_ms": bound_ms,
+            }
+            rows["radix"][n][kind] = row
+            log(f"sort n={n} {kind} " + json.dumps(row))
+            if kind == "uniform":
+                # the whole bitonic sort, the block-structured counterpart of
+                # K1+K2: held at every size (`got` equals its plain network,
+                # checked above), timed at the two sizes of the main path
+                before = sort_smem.bitonic_launches
+                got_b = sort_smem.bitonic_sort_int32_pow2(x)
+                torch.cuda.synchronize()
+                if sort_smem.bitonic_launches != before + 1 or not torch.equal(got_b, got):
+                    raise RuntimeError(f"bitonic sort kernel disagrees at n={n}")
+                rows["bitonic"][n] = {
+                    "max_abs_err": int((got_b.long() - lib.long()).abs().max()),
+                    "bound_ms": bound_ms,
+                }
+                if big:
+                    rows["bitonic"][n].update(
+                        kernel_ms=time_ms(lambda: sort_smem.bitonic_sort_int32_pow2(x)),
+                        library_ms=row["library_ms"],
+                        plain_ms=row["bitonic_plain_ms"],
+                    )
+                log(f"sort n={n} bitonic " + json.dumps(rows["bitonic"][n]))
+                del got_b
+            del x, got, lib
     torch.cuda.empty_cache()
-    log("phase sort ok: bit-exact against the plain network and torch.sort "
+    log("phase sort ok: bit-exact against both plain versions and torch.sort "
         f"at n = {', '.join(str(n) for n in SORT_SIZES)}")
     return rows
 
@@ -167,7 +208,8 @@ def load_tool():
 
 
 def phase_primitives() -> tuple[dict, dict]:
-    """Returns ({candidate: row}, {launch counter: launches of the tool's run})."""
+    """Returns ({candidate: row}, {launch counter: launches of the tool's run});
+    the whole bitonic sort's counter is among them as ``bitonic_sort``."""
     import torch
 
     from subphaser_torch.ops import sort_primitives as sp
@@ -176,8 +218,9 @@ def phase_primitives() -> tuple[dict, dict]:
     tool = load_tool()
     for name in sp.launches:
         sp.launches[name] = 0
+    sort_smem.bitonic_launches = 0
     tool_rows = tool.main([])
-    launches = dict(sp.launches)
+    launches = dict(sp.launches, bitonic_sort=sort_smem.bitonic_launches)
     idle = [name for name, count in launches.items() if count <= 0]
     if idle:
         raise RuntimeError(f"the tool's run launched no kernel of {idle}")
@@ -208,7 +251,8 @@ def phase_primitives() -> tuple[dict, dict]:
             "tool_ms": tool_rows[name]["ms"],
         }
         log(f"primitive {name} " + json.dumps(rows[name]))
-    log(f"primitive torch_sort tool_ms={tool_rows['torch_sort']['ms']}")
+    for name in ("bitonic_sort", "radix_sort", "torch_sort"):
+        log(f"primitive {name} tool_ms={tool_rows[name]['ms']}")
     if not torch.equal(sp.block_sort_unrolled(x_full), sort_smem.block_sort(x_full)):
         raise RuntimeError("block_sort_unrolled disagrees with block_sort")
     halves = x_tool.view(tool.N_BLOCKS, 2, -1)
@@ -304,19 +348,23 @@ def phase_main(k: int = 15) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sort_smem.launches = 0
+    for route in sort_smem.route_launches:
+        sort_smem.route_launches[route] = 0
     t0 = time.perf_counter()
     pipe = run_cli(fa, cfg, os.path.join(WORK, phase), "-k", str(k), "-min_freq", "200")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sort_smem.launches
+    by_route = dict(sort_smem.route_launches)
     for suffix in CORE_FILES:
         if not os.path.getsize(pipe.para_prefix + suffix):
             raise RuntimeError(f"empty output {suffix}")
     check_phased(read_assignments(pipe))
     if pipe.map_dense != (k <= 15):
         raise RuntimeError(f"{phase}: wrong mapping path (dense={pipe.map_dense})")
-    if launches <= 0:
-        raise RuntimeError(f"the sort kernel was not launched on the {phase} path")
+    if by_route["radix"] <= 0 or sum(by_route.values()) != launches:
+        raise RuntimeError(f"the radix sort kernel was not launched on the {phase} path: "
+                           f"{by_route} of {launches}")
     with open(pipe.para_prefix + ".sig.kmer-subgenome.tsv") as f:
         kmers = [line.split("\t", 1)[0] for line in f if not line.startswith("#")]
     if not kmers or any(len(km) != k or set(km) - set("ACGT") for km in kmers):
@@ -331,6 +379,7 @@ def phase_main(k: int = 15) -> dict:
         "map_mbp_per_s": mbp / pipe.step_seconds["map"],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "sort_launches": launches,
+        "sort_launches_by_route": by_route,
         "sig_kmers": len(kmers),
         "assignments": read_assignments(pipe),
     }
@@ -366,22 +415,47 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip()
     log(smi)
-    row = sort_rows[1 << 27]
+    by_path = {route: {"main": main_res["sort_launches_by_route"][route],
+                       "main_k17": k17_res["sort_launches_by_route"][route]}
+               for route in ("radix", "block_sort")}
+    radix = {f"2^{n.bit_length() - 1}": by_kind for n, by_kind in sort_rows["radix"].items()
+             if n > 1 << 13}
+    row = sort_rows["radix"][1 << 27]["uniform"]
     kernels = [{
-        "name": "bitonic_sort_int32",
+        "name": "radix_sort_int32",
         "route": "cuda",
-        "source": "subphaser_torch/csrc/bitonic_sort.cu",
+        "source": "subphaser_torch/csrc/radix_sort.cu",
         "replaces": tpu_kernel_site(SORT_VMEM, "def _block_sort_kernel_grid"),
-        "launches": main_res["sort_launches"],
-        "launches_by_path": {"main": main_res["sort_launches"],
-                             "main_k17": k17_res["sort_launches"]},
-        "max_abs_err": row["max_abs_err"],
+        "launches": by_path["radix"]["main"],
+        "launches_by_path": by_path["radix"],
+        "max_abs_err": max(r["max_abs_err"] for by_kind in radix.values()
+                           for r in by_kind.values()),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": row["library_ms"],
+        "by_size": radix,  # 2^23: all but a few of the launches of either path
     }]
+    row = sort_rows["bitonic"][1 << 27]
+    kernels.append({
+        "name": "bitonic_sort_int32",
+        "route": "cuda",
+        "source": "subphaser_torch/csrc/bitonic_sort.cu",
+        "replaces": tpu_kernel_site(SORT_VMEM, "def _descent_kernel"),
+        "launches": prim_launches["bitonic_sort"],  # the tool's run; on no phasing path
+        "launches_by_path": {"primitives": prim_launches["bitonic_sort"], "main": 0,
+                             "main_k17": 0},
+        # its block_sort kernel alone is the production sort's route up to 2^13 keys
+        "block_sort_launches_by_path": by_path["block_sort"],
+        "max_abs_err": max(r["max_abs_err"] for r in sort_rows["bitonic"].values()),
+        "ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": row["library_ms"],
+        "by_size": {f"2^{n.bit_length() - 1}": r for n, r in sort_rows["bitonic"].items()},
+    })
     # one entry per kernel of the primitives path; block_map's own numbers
     # are its full descent (descent18), every candidate's are inside
     for name, (pattern, needle, cand_names) in PRIMITIVE_KERNELS.items():
@@ -401,7 +475,8 @@ def main() -> int:
             "library_ms": None,
             "candidates": cands,
         })
-    kernels[1]["block_sort_ms"] = prim_rows["block_sort"]["ms"]  # the looped twin
+    unrolled = next(k for k in kernels if k["name"] == "block_sort_unrolled")
+    unrolled["block_sort_ms"] = prim_rows["block_sort"]["ms"]  # the looped twin
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

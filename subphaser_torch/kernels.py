@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = {
     "bitonic_sort": os.path.join(PKG_DIR, "csrc", "bitonic_sort.cu"),
     "sort_primitives": os.path.join(PKG_DIR, "csrc", "sort_primitives.cu"),
+    "radix_sort": os.path.join(PKG_DIR, "csrc", "radix_sort.cu"),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

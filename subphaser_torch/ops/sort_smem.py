@@ -1,20 +1,36 @@
-"""Ascending sort of power-of-two int32 arrays: CUDA bitonic kernel + its
-plain PyTorch network.
+"""Ascending sort of power-of-two int32 arrays: the CUDA radix sort, the
+CUDA bitonic sort, and the plain PyTorch version of each.
 
 Counterpart of the JAX package's Pallas VMEM bitonic sort (ops/sort_vmem.py,
 kernels K1 `_block_sort_kernel_grid` and K2 `_descent_kernel`). Every
 keys-only sort of the port's counting and mapping paths goes through
-:func:`sort_int32_pow2`:
+:func:`sort_int32_pow2`, which takes one of two routes by size, the same on
+both devices:
 
-- a CPU tensor takes :func:`bitonic_sort_plain`, the same network in
-  vectorised ``min``/``max`` over reshaped views;
-- a CUDA tensor launches ``csrc/bitonic_sort.cu`` or raises.
+- up to 2^BLK_BITS keys, the bitonic network of one block: on a CUDA tensor
+  one launch of ``block_sort`` of ``csrc/bitonic_sort.cu``, on a CPU tensor
+  :func:`bitonic_sort_plain`;
+- above, a least-significant-digit radix sort: on a CUDA tensor
+  ``csrc/radix_sort.cu`` (4 passes of 8-bit digits, see its head note), on a
+  CPU tensor :func:`radix_sort_plain`, the same schedule with narrower
+  digits.
 
-Schedule (shared by both, with ``BLK = 2^blk_bits`` keys per block): bitonic
-phases 1..blk_bits inside each block, direction from bit p of the global
-index; then for each merge level p > blk_bits the cross-block strides
+A CUDA tensor launches its kernel or raises. :func:`bitonic_sort_int32_pow2`
+keeps the whole bitonic sort (the block-structured counterpart of K1 and K2)
+reachable at every size.
+
+Bitonic schedule (kernel and plain, ``BLK = 2^blk_bits`` keys per block):
+bitonic phases 1..blk_bits inside each block, direction from bit p of the
+global index; then for each merge level p > blk_bits the cross-block strides
 2^(p-1)..BLK as whole-array stages, followed by a descent over strides
 BLK/2..1 with one direction per block (bit p - blk_bits of the block id).
+
+Radix schedule (kernel and plain, tiles of ``2^tile_bits`` keys, digits of
+``digit_bits`` bits of ``key ^ 0x80000000``, lowest digit first): per pass
+the digit histogram of every tile, laid out digit-major; the exclusive scan
+of each digit's row over tiles and of the digit totals; the stable rank of
+every key among its tile's keys of the same digit; then key -> base[digit]
++ row_scan[digit][tile] + rank, out of place.
 """
 
 from __future__ import annotations
@@ -27,7 +43,11 @@ import torch
 SENTINEL = int(np.iinfo(np.int32).max)
 BLK_BITS = 13  # keys per CUDA block = 2^13 (32 KB of shared memory)
 
+CPU_DIGIT_BITS = 4  # digit width of the CPU route (the kernel's is 8)
+
 launches = 0  # kernel launches through sort_int32_pow2 (whole sorts)
+route_launches = {"block_sort": 0, "radix": 0}  # the same launches by route
+bitonic_launches = 0  # whole sorts through bitonic_sort_int32_pow2
 
 
 def _pow2_bits(n: int) -> int:
@@ -90,6 +110,41 @@ def bitonic_sort_plain(x: torch.Tensor, blk_bits: int = BLK_BITS) -> torch.Tenso
     return y
 
 
+def radix_sort_plain(x: torch.Tensor, digit_bits: int = 8,
+                     tile_bits: int = BLK_BITS) -> torch.Tensor:
+    """The radix kernel's schedule in plain PyTorch (no torch.sort), any
+    device: per pass and tile the digit histogram and each key's stable
+    rank among the tile's keys of its digit (one sweep per digit value),
+    the digit-major exclusive scans, and the scatter."""
+    t = _pow2_bits(x.numel())
+    if not 1 <= digit_bits <= 16 or tile_bits < 1:
+        raise ValueError(f"radix_sort_plain: bad digit_bits={digit_bits} tile_bits={tile_bits}")
+    n = 1 << t
+    tile = 1 << min(tile_bits, t)
+    ntiles = n // tile
+    radix = 1 << digit_bits
+    tile_of = torch.arange(ntiles, device=x.device)[:, None]
+    y = x.reshape(-1).clone()
+    for shift in range(0, 32, digit_bits):
+        biased = y.view(ntiles, tile).to(torch.int64) + (1 << 31)  # key ^ 0x80000000, unsigned
+        digit = (biased >> shift) & (radix - 1)
+        hist = torch.empty(radix, ntiles, dtype=torch.int64, device=x.device)
+        rank = torch.zeros(ntiles, tile, dtype=torch.int64, device=x.device)
+        for d in range(radix):
+            m = digit == d
+            seen = torch.cumsum(m, dim=1)
+            hist[d] = seen[:, -1]
+            rank = torch.where(m, seen - 1, rank)
+        row_scan = torch.cumsum(hist, dim=1) - hist
+        totals = hist.sum(dim=1)
+        base = torch.cumsum(totals, dim=0) - totals
+        dst = base[digit] + row_scan[digit, tile_of] + rank
+        out = torch.empty_like(y)
+        out[dst.reshape(-1)] = y
+        y = out
+    return y
+
+
 def _kernel_call(entry: str, x: torch.Tensor, total_bits: int) -> torch.Tensor:
     """Copy ``x`` and run the library's in-place ``entry`` on the copy."""
     from subphaser_torch import kernels
@@ -124,15 +179,66 @@ def _checked_bits(name: str, x: torch.Tensor) -> int:
     return _pow2_bits(x.numel())
 
 
+def _radix_kernel_call(x: torch.Tensor, total_bits: int) -> torch.Tensor:
+    """Run ``csrc/radix_sort.cu`` on ``x`` (read only) and return the
+    sorted keys in a new tensor."""
+    from subphaser_torch import kernels
+
+    lib = kernels.load("radix_sort")
+    ptr = ctypes.c_void_p
+    lib.radix_sort_int32.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ptr]
+    lib.radix_sort_int32.restype = ctypes.c_int
+    lib.radix_scratch_words.argtypes = [ctypes.c_int]
+    lib.radix_scratch_words.restype = ctypes.c_longlong
+    lib.radix_error_string.argtypes = [ctypes.c_int]
+    lib.radix_error_string.restype = ctypes.c_char_p
+    if lib.radix_tile_bits() != BLK_BITS:
+        raise RuntimeError("radix_sort library was built with another tile size")
+    src = x.reshape(-1)
+    if not src.is_contiguous() or src.data_ptr() % 16:
+        src = src.clone(memory_format=torch.contiguous_format)  # 16-byte loads
+    a, b = torch.empty_like(src), torch.empty_like(src)
+    scratch = torch.empty(lib.radix_scratch_words(total_bits), dtype=torch.int32,
+                          device=src.device)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.radix_sort_int32(src.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                   scratch.data_ptr(), total_bits, stream)
+    if err != 0:
+        raise RuntimeError(
+            "radix_sort_int32 launch failed: " + lib.radix_error_string(err).decode())
+    return b
+
+
 def sort_int32_pow2(x: torch.Tensor) -> torch.Tensor:
     """Ascending sort of a 1-D int32 tensor whose size is a power of two
     (>= 2). Callers pad with SENTINEL (int32 max), which trails."""
     total_bits = _checked_bits("sort_int32_pow2", x)
     if x.device.type == "cpu":
-        return bitonic_sort_plain(x)
-    y = _kernel_call("bitonic_sort_int32", x, total_bits)
+        if total_bits <= BLK_BITS:
+            return bitonic_sort_plain(x)
+        return radix_sort_plain(x, digit_bits=CPU_DIGIT_BITS)
+    route = "block_sort" if total_bits <= BLK_BITS else "radix"
+    if route == "block_sort":
+        y = _kernel_call("bitonic_block_sort_int32", x, total_bits)
+    else:
+        y = _radix_kernel_call(x, total_bits)
     global launches
     launches += 1
+    route_launches[route] += 1
+    return y
+
+
+def bitonic_sort_int32_pow2(x: torch.Tensor) -> torch.Tensor:
+    """The same function through the whole bitonic sort at every size:
+    ``bitonic_sort_int32`` of csrc/bitonic_sort.cu on a CUDA tensor,
+    :func:`bitonic_sort_plain` on a CPU tensor."""
+    total_bits = _checked_bits("bitonic_sort_int32_pow2", x)
+    if x.device.type == "cpu":
+        return bitonic_sort_plain(x)
+    y = _kernel_call("bitonic_sort_int32", x, total_bits)
+    global bitonic_launches
+    bitonic_launches += 1
     return y
 
 

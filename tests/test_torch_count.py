@@ -12,6 +12,7 @@ from subphaser_torch.state import genome_from_numpy, spectra_from_numpy
 from subphaser_tpu.ops import count as jc
 from subphaser_tpu.phase.spectrum import count_genome as j_count_genome
 from tests.make_synthetic import make_genome
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ from subphaser_tpu.io.genome import PackedGenome
 from subphaser_tpu.ops import count_pair as jc
 from subphaser_tpu.phase.spectrum import count_genome as j_count_genome
 from tests.test_encoding import random_seq
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _t(a):

@@ -49,7 +49,7 @@ def test_no_jax_or_reference_package_in_sources():
     assert len(files) > 25
     names = {p.name for p in files}
     assert {"kmer_pair.py", "count_pair.py", "mapbins_pair.py", "sort_primitives.py",
-            "sort_primitives.cu"} <= names
+            "sort_primitives.cu", "radix_sort.cu", "bitonic_sort.cu"} <= names
     for path in files:
         text = path.read_text()
         assert not _FORBIDDEN.search(text), path
@@ -81,11 +81,30 @@ def test_cli_defaults_to_cuda():
     assert args.device == "cuda"
 
 
-def test_sort_wrapper_refuses_other_devices():
-    from subphaser_torch.ops.sort_smem import sort_int32_pow2
+@pytest.mark.parametrize("n", [8, 1 << 14])  # the block-sort and the radix route
+def test_sort_wrapper_refuses_other_devices(n):
+    from subphaser_torch.ops.sort_smem import bitonic_sort_int32_pow2, sort_int32_pow2
 
-    with pytest.raises(ValueError, match="device"):
-        sort_int32_pow2(torch.zeros(8, dtype=torch.int32, device="meta"))
+    for fn in (sort_int32_pow2, bitonic_sort_int32_pow2):
+        with pytest.raises(ValueError, match="device"):
+            fn(torch.zeros(n, dtype=torch.int32, device="meta"))
+
+
+def test_every_kernel_source_is_built_and_wrapped():
+    """Each csrc/*.cu is a build target, and the sort sources are loaded by
+    the sort wrappers (no library sort on the radix route)."""
+    from subphaser_torch import kernels
+
+    assert {pathlib.Path(p).name for p in kernels.SOURCES.values()} == {
+        p.name for p in (PORT / "csrc").glob("*.cu")}
+    text = (PORT / "ops" / "sort_smem.py").read_text()
+    assert 'kernels.load("radix_sort")' in text and 'kernels.load("bitonic_sort")' in text
+    route = text[text.index("def _radix_kernel_call"):text.index("def bitonic_sort_int32_pow2")]
+    for banned in ("torch.sort", "argsort", "cumsum", "unique"):
+        assert banned not in route, banned
+    cu = (PORT / "csrc" / "radix_sort.cu").read_text()
+    for banned in ("cub", "thrust"):
+        assert not re.search(rf"#include\s*<{banned}", cu), banned
 
 
 def test_primitive_wrappers_refuse_other_devices():

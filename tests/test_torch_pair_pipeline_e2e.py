@@ -12,6 +12,7 @@ import logging
 import pytest
 
 from tests.make_synthetic import make_genome
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KW = dict(k=17, min_freq=40, replicates=10, tile_bases=1 << 16, figfmt="png",
           disable_ltr=True, disable_circos=True, window_size=40_000)

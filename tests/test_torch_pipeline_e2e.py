@@ -12,6 +12,7 @@ import logging
 import pytest
 
 from tests.make_synthetic import make_genome
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KW = dict(min_freq=50, replicates=50, tile_bases=1 << 16, figfmt="png",
           disable_ltr=True, disable_circos=True, window_size=50_000)

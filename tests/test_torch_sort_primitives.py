@@ -18,6 +18,7 @@ import torch
 
 from subphaser_torch.ops import sort_primitives as sp
 from subphaser_torch.ops import sort_smem
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_BLOCKS = 2

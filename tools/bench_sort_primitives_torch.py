@@ -8,9 +8,11 @@ subphaser_torch/ops/sort_primitives.py. It shows what a compare-exchange
 stage costs on the card by where the partner lives (registers, warp
 shuffle, shared memory, device memory); that module's docstring says which
 level each candidate exercises. ``torch_sort`` is the library yardstick
-(the JAX tool's ``lax_sort`` line). ``block_sort`` (the production sort's
+(the JAX tool's ``lax_sort`` line). ``block_sort`` (the bitonic sort's
 looped phase (a)) and ``block_sort_unrolled`` (its compile-time unrolled
-twin) run beside the JAX tool's candidates.
+twin) run beside the JAX tool's candidates, and so do the two whole sorts
+of ops/sort_smem: ``bitonic_sort`` (the comparison network the stages add
+up to) and ``radix_sort`` (the production route, csrc/radix_sort.cu).
 
 Every iteration gets a fresh salt xor-ed into the input; a candidate's time
 is the median of 5 CUDA-event timings of the wrapper alone, after 2
@@ -35,6 +37,7 @@ import torch  # noqa: E402
 
 from subphaser_torch.device import resolve_device  # noqa: E402
 from subphaser_torch.ops import sort_primitives as sp  # noqa: E402
+from subphaser_torch.ops import sort_smem  # noqa: E402
 
 N_BLOCKS = 128  # 33.5M keys in all
 ITERS, WARMUP = 5, 2
@@ -48,6 +51,27 @@ def make_input(n_blocks: int, device: torch.device) -> torch.Tensor:
     rng = np.random.default_rng(0)
     flat = rng.integers(0, 1 << 30, size=n_blocks * sp.BLOCK, dtype=np.int32)
     return torch.from_numpy(flat).to(device)
+
+
+def sort_input(kind: str, n: int, device, seed: int = 2024) -> torch.Tensor:
+    """Inputs of the whole sorts at the phaser's sizes. ``uniform``: keys
+    drawn from n/8 values (many repeats, as counting sees); ``skewed``:
+    99.9% SENTINEL, the rest full-range (as mapping sees); ``full_range``:
+    any int32, INT32_MIN among them."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if kind == "uniform":
+        return torch.randint(0, max(n // 8, 2), (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+    x = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen, device=device,
+                      dtype=torch.int64).to(torch.int32)
+    if kind == "skewed":
+        x[torch.rand(n, generator=gen, device=device) >= 0.001] = sort_smem.SENTINEL
+    elif kind == "full_range":
+        x[::1001] = -(1 << 31)
+    else:
+        raise ValueError(f"unknown sort input {kind!r}")
+    return x
 
 
 def bench(fn, x_base: torch.Tensor, iters: int = ITERS, warmup: int = WARMUP):
@@ -72,7 +96,9 @@ def main(argv=None, n_blocks: int = N_BLOCKS) -> dict:
     {name: {"ms", "ms_per_stage", "mkeys_per_s", "checksum"}}."""
     names = list(sys.argv[1:] if argv is None else argv)
     device = resolve_device("cuda")
-    fns = dict(sp.candidates(), torch_sort=lambda x: torch.sort(x).values)
+    fns = dict(sp.candidates(), bitonic_sort=sort_smem.bitonic_sort_int32_pow2,
+               radix_sort=sort_smem.sort_int32_pow2,
+               torch_sort=lambda x: torch.sort(x).values)
     unknown = [n for n in names if n not in fns]
     if unknown:
         raise SystemExit(f"unknown candidates {unknown}; known: {', '.join(fns)}")
