@@ -24,12 +24,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
 3. primitives  the sort-primitives tool (tools/bench_sort_primitives_torch.py)
             at its full size, 128 blocks of 2^18 keys, with the launch counts
             read around it (the whole bitonic and radix sorts are candidates
-            of it too); then every kernel behind it bit-exact against its
-            plain version on the card (tool inputs and full-range keys),
-            block_sort_unrolled (K3, phases 1..18 of 2^18-key blocks) against
-            block_sort_plain(., 18), descent18 of a bitonic input against
-            torch.sort; prints each kernel's and plain version's time and
-            the bytes bound;
+            of it too; K3 and K4's six lists of stages must all launch the
+            cluster kernel, one launch a call); then every kernel behind it
+            bit-exact against its plain version on the card (tool inputs and
+            full-range keys); block_sort_unrolled (K3, phases 1..18 of 2^18-key
+            blocks, a cluster of 8 CTAs a block) and its library call (one
+            segmented torch.sort) against block_sort_plain(., 18) at n = 2^10,
+            2^15, 2^16, 2^18, 2^19 and 2^25; descent18 of a bitonic input
+            against torch.sort. Prints how many clusters fit on the card,
+            each kernel's, plain version's and K3's library time, and the
+            bytes and operations bounds (int32 min/max at 128 a clock an
+            SM, at the card's maximum SM clock; a block sort's operations
+            are log2(block) a key, its bitonic network's count is shown
+            beside the bound as network_ops_ms);
 4. hmm      the classifier's two scans (viterbi_scan, ssv_scan of
             csrc/hmm_scan.cu) bit-exact against their plain versions on the
             card, at B = 1024 residue rows of L = 64, 1024 and 4096, on the
@@ -83,6 +90,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke")  # git-ignored scratch: genomes, outputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores (data sheet)
+# 32-bit integer min/max/add a clock an SM: 128, the SM's 4 schedulers x 32
+# lanes, the most any 32-bit instruction issues. (The CUDA C Programming
+# Guide's table gives 64 for compare/min/max at compute capability 9.0, but
+# on the H100 a register compare-exchange stage of the cluster kernel runs
+# above that rate, and sm_90 fuses an add and a max into one instruction.)
+INT32_OPS_PER_CLOCK_PER_SM = 128
 SORT_SIZES = [2, 1 << 10, 1 << 18, 1 << 23, 1 << 27]
 MAIN_SETS, MAIN_CHROM_MB = 2, 80
 CORE_FILES = [".kmer.mat", ".chrom-subgenome.tsv", ".sig.kmer-subgenome.tsv",
@@ -269,32 +282,98 @@ def load_tool():
     return mod
 
 
+def card_int32_ops_per_s() -> tuple[float, dict]:
+    """The card's peak rate of 32-bit integer min/max/add:
+    INT32_OPS_PER_CLOCK_PER_SM x SMs x the maximum SM clock nvidia-smi reads."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6, {"sm_clock_mhz": mhz, "sms": sms}
+
+
+SORT_PHASES = {"block_sort": 13, "block_sort_unrolled": 18}  # log2 of the block each sorts
+
+
+def primitive_ops(name: str, n: int) -> int:
+    """32-bit integer operations a primitive's function needs on n keys: a
+    compare-exchange stage is a min and a max per pair (n), max(x, x - 1) two
+    per key. The block sorts' function is only "each block sorted", which a
+    comparison sort does in about log2(block) comparisons a key, so they count
+    n * log2(block), not their bitonic network (network_ops below)."""
+    from subphaser_torch.ops import sort_primitives as sp
+
+    if name in sp.STAGE_BITS:
+        return len(sp.STAGE_BITS[name]) * n
+    if name in SORT_PHASES:
+        return min(n.bit_length() - 1, SORT_PHASES[name]) * n
+    return {"elementwise30": 2 * sp.ELEMENTWISE_ITERS * n,
+            "transpose8": 2 * sp.TRANSPOSE_REPS * n,
+            "descent18_masked": len(sp.MASKED_BITS) * n,
+            "descent18_grid2d": len(sp.GRID2D_BITS) * sp.GRID2D_REVISITS * n}[name]
+
+
+def network_ops(name: str, n: int) -> int:
+    """The min/max a block sort's bitonic network does on n keys: p(p + 1)/2
+    stages of a min and a max per pair over p phases. Shown beside the
+    bound, never as it: it is more work than the function needs."""
+    p = min(n.bit_length() - 1, SORT_PHASES[name])
+    return p * (p + 1) // 2 * n
+
+
+def full_range_keys(n: int, seed: int):
+    """Any int32, INT32_MIN sown every 1001 keys."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen, device="cuda",
+                      dtype=torch.int64).to(torch.int32)
+    x[::1001] = -(1 << 31)
+    return x
+
+
 def phase_primitives() -> tuple[dict, dict]:
     """Returns ({candidate: row}, {launch counter: launches of the tool's run});
-    the whole bitonic sort's counter is among them as ``bitonic_sort``."""
+    the whole bitonic sort's counter is among them as ``bitonic_sort``, the
+    cluster kernel's entry points as ``sp_block_sort_cluster`` and
+    ``sp_run_stages_cluster``."""
     import torch
 
     from subphaser_torch.ops import sort_primitives as sp
     from subphaser_torch.ops import sort_smem
 
     tool = load_tool()
+    ops_per_s, clock = card_int32_ops_per_s()
+    fits = {f"{max(n >> sp.CTA_BITS, 1)} CTAs": sp.clusters_that_fit(n)
+            for n in (1 << 15, 1 << 16, 1 << 17, 1 << 25)}
+    log(f"primitives clusters that fit at once {json.dumps(fits)}; {json.dumps(clock)}")
     for name in sp.launches:
         sp.launches[name] = 0
+    sp.entry_launches.clear()
     sort_smem.bitonic_launches = 0
     tool_rows = tool.main([])
     launches = dict(sp.launches, bitonic_sort=sort_smem.bitonic_launches)
-    idle = [name for name, count in launches.items() if count <= 0]
+    cluster_entries = {e: sp.entry_launches.get(e, 0)
+                       for e in ("sp_block_sort_cluster", "sp_run_stages_cluster")}
+    idle = [name for name, count in {**launches, **cluster_entries}.items() if count <= 0]
     if idle:
         raise RuntimeError(f"the tool's run launched no kernel of {idle}")
+    # K3 one cluster launch a call; the six stage-list bodies on the cluster kernel
+    n_lists = sum(1 for c in sp.BLOCK_MAP_CANDIDATES if c in sp.STAGE_BITS)
+    if (cluster_entries["sp_block_sort_cluster"] != launches["block_sort_unrolled"]
+            or cluster_entries["sp_run_stages_cluster"] * len(sp.BLOCK_MAP_CANDIDATES)
+            != launches["block_map"] * n_lists):
+        raise RuntimeError(f"K3/K4 did not all take the cluster kernel: {sp.entry_launches}")
+    launches.update(cluster_entries)
 
     x_tool = tool.make_input(tool.N_BLOCKS, torch.device("cuda")) ^ 1
     n = x_tool.numel()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
-    x_full = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen, device="cuda",
-                           dtype=torch.int64).to(torch.int32)
-    x_full[::1001] = -(1 << 31)
+    x_full = full_range_keys(n, 7)
     plains = sp.plain_versions()
+    bytes_ms = 8 * n / HBM_BYTES_PER_S * 1e3
     rows = {}
     for name, fn in sp.candidates().items():
         err = 0
@@ -305,16 +384,49 @@ def phase_primitives() -> tuple[dict, dict]:
                 raise RuntimeError(f"primitive {name} disagrees with its plain version")
             err = max(err, int((got.long() - want.long()).abs().max()))
             del got, want
+        ops_ms = primitive_ops(name, n) / ops_per_s * 1e3
         rows[name] = {
             "max_abs_err": err,
             "ms": time_ms(lambda: fn(x_tool)),
             "plain_ms": time_ms(lambda: plains[name](x_tool), 3),
-            "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
+            "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
             "tool_ms": tool_rows[name]["ms"],
         }
+        if name in SORT_PHASES:
+            rows[name]["network_ops_ms"] = network_ops(name, n) / ops_per_s * 1e3
+        if name == "block_sort_unrolled":  # its library call, on the same input
+            if not torch.equal(tool.segmented_sort(x_tool), fn(x_tool)):
+                raise RuntimeError("the segmented torch.sort disagrees with K3")
+            rows[name]["library_ms"] = time_ms(lambda: tool.segmented_sort(x_tool))
         log(f"primitive {name} " + json.dumps(rows[name]))
-    for name in ("bitonic_sort", "radix_sort", "torch_sort"):
+    for name in ("bitonic_sort", "radix_sort", "torch_sort", "torch_sort_segmented"):
         log(f"primitive {name} tool_ms={tool_rows[name]['ms']}")
+    # K3 at every launch shape (one CTA padded, one CTA, clusters of 2,
+    # one and several clusters of 8), and its library call, bit-exact
+    k3 = rows["block_sort_unrolled"]
+    k3["by_size"] = {}
+    for bits in (10, 15, 16, 18, 19, 25):
+        x = full_range_keys(1 << bits, bits)
+        want = sort_smem.block_sort_plain(x, sp.BLOCK_BITS)
+        before = sp.entry_launches.get("sp_block_sort_cluster", 0)
+        got, lib = sp.block_sort_unrolled(x), tool.segmented_sort(x)
+        torch.cuda.synchronize()
+        if sp.entry_launches["sp_block_sort_cluster"] != before + 1:
+            raise RuntimeError("block_sort_unrolled took more or less than one cluster launch")
+        if not (torch.equal(got, want) and torch.equal(lib, want)):
+            raise RuntimeError(f"K3 or its library call disagrees at n=2^{bits}")
+        k3["by_size"][f"2^{bits}"] = {
+            "max_abs_err": max(int((got.long() - want.long()).abs().max()),
+                               int((lib.long() - want.long()).abs().max()))}
+        if bits == 25:
+            k3["by_size"]["2^25"].update(ms=time_ms(lambda: sp.block_sort_unrolled(x)),
+                                         library_ms=time_ms(lambda: tool.segmented_sort(x)))
+        del x, want, got, lib
+    k3["clusters_that_fit"] = fits
+    log("primitive block_sort_unrolled by size " + json.dumps(k3["by_size"]))
     if torch.equal(sp.block_sort_unrolled(x_full), sort_smem.block_sort(x_full)):
         raise RuntimeError("block_sort_unrolled ran the 2^13-key block sort, not K3's 2^18")
     halves = x_tool.view(tool.N_BLOCKS, 2, -1)
@@ -325,8 +437,8 @@ def phase_primitives() -> tuple[dict, dict]:
         raise RuntimeError("descent18 of a bitonic block disagrees with torch.sort")
     del x_tool, x_full, halves, bitonic, got
     torch.cuda.empty_cache()
-    log(f"phase primitives ok: {len(rows)} candidates bit-exact at n = {n}; "
-        f"tool launches {json.dumps(launches)}")
+    log(f"phase primitives ok: {len(rows)} candidates bit-exact at n = {n}, K3 and its "
+        f"library call at n = 2^10..2^25; tool launches {json.dumps(launches)}")
     return rows, launches
 
 
@@ -771,12 +883,13 @@ def main() -> int:
             "ms": lead["ms"],
             "plain_ms": lead["plain_ms"],
             "bound_ms": lead["bound_ms"],
-            "bound_by": "bytes",
-            "library_ms": None,
+            "bound_by": lead["bound_by"],
+            "library_ms": lead.get("library_ms"),
             "candidates": cands,
         })
     unrolled = next(k for k in kernels if k["name"] == "block_sort_unrolled")
     unrolled["block_sort_ms"] = prim_rows["block_sort"]["ms"]  # the looped twin
+    unrolled["network_ops_ms"] = prim_rows["block_sort_unrolled"]["network_ops_ms"]
     # the classifier's scans (hand-written kernels of XLA-lowered functions);
     # their own numbers are the wheat fixture database at L = 1024, a bucket
     # of the ltr path

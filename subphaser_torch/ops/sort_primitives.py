@@ -8,38 +8,51 @@ of whole 2^18-key blocks (the TPU's VMEM block, (2048, 128)):
 - K3 ``_block_sort_kernel`` (ops/sort_vmem.py) -> :func:`block_sort_unrolled`:
   bitonic phases 1..18 of every 2^18-key block, the direction of a pair from
   bit p of its global index (ascending throughout when the array is one
-  block). A CUDA block holds 2^13 keys (ops/sort_smem.BLK_BITS), so phases
-  1..13 are one straight-line launch on 2^13-key tiles and phases 14..18 run
-  on the stage kernels: device-memory stages for strides >= 2^13, then a
-  shared-memory descent whose direction is the tile's bit p. Its plain
-  version is ``sort_smem.block_sort_plain(x, 18)``.
+  block). One launch of ``cluster_stages`` (``csrc/sort_primitives.cu``):
+  a thread-block cluster of 8 CTAs holds a block on chip, 2^15 keys a CTA,
+  and runs all 171 stages there. Its plain version is
+  ``sort_smem.block_sort_plain(x, 18)``.
 - K4 ``pallas_block_map(body)`` (tools/bench_sort_primitives.py), one body
-  per candidate -> :func:`block_map`, same candidate names.
+  per candidate -> :func:`block_map`, same candidate names. The six lists
+  of stages run on ``cluster_stages`` too, one launch a call.
 - K5 ``_descent_masked`` -> :func:`descent_masked`.
-- K6 ``_descent_grid2d`` -> :func:`descent_grid2d`.
+- K6 ``_descent_grid2d`` -> :func:`descent_grid2d`. K5 and K6 keep the
+  2^13-key tiles of ``tile_stages`` (ops/sort_smem.BLK_BITS).
 
 A CPU tensor takes the plain version; a CUDA tensor launches
 ``csrc/sort_primitives.cu`` or raises. ``launches[name]`` counts the calls
-that launched a kernel.
+that launched a kernel. The cluster kernel needs thread-block clusters
+(sm_90a); a card on which no cluster of its shape fits makes the wrapper
+raise (:func:`clusters_that_fit`).
 
 Where a stage's partner lives on the card (the analogue of the TPU's
-lane-roll / sublane-reshape / sublane-roll lowerings), by stride 2^b on a
-contiguous 2^13-key tile: b 0..1 the thread's own registers, b 2..6 a warp
-shuffle, b 7..12 shared memory, b >= 13 one pass over device memory.
-So the candidates exercise:
+lane-roll / sublane-reshape / sublane-roll lowerings). In the cluster
+kernel, by stride 2^b: b 0..14 in the thread's own registers, in one of
+three layouts that hold bits 0..4, 5..9 or 10..14 in registers (a change
+of layout is one round trip through shared memory: inside each warp
+between the first two, across the CTA's warps to or from the third), b
+15..17 in another CTA of the cluster (a run of such stages is one gather
+from the CTAs it spans and one scatter back, through distributed shared
+memory). In a 2^13-key tile (K5, K6): b 0..1 registers, 2..6 a warp
+shuffle, 7..12 shared memory. So the candidates exercise:
 
 ==========================  ===========================================
-passthrough                 device memory -> shared memory -> device memory
+candidate                   stages by where the partner lives (changes
+                            of layout across / inside warps; cross-CTA
+                            runs)
+==========================  ===========================================
+passthrough                 device memory -> registers -> device memory
 elementwise30               registers only (30 dependent max(x, x - 1))
-lane_roll_stages            6 register + 12 shuffle stages, one launch
-sublane_reshape_small       18 shared-memory stages, one launch
-sublane_reshape_vreg        8 shared-memory + 10 device-memory stages
-sublane_roll_stages         12 shared-memory + 6 device-memory stages
+lane_roll_stages            18 register (0 / 6)
+sublane_reshape_small       18 register (none)
+sublane_reshape_vreg        12 register (1 / 0), 6 cross-CTA in 2 runs
+sublane_roll_stages         15 register (2 / 0), 3 cross-CTA in 1 run
 transpose8                  shared memory (8 transposes of 128 x 128 tiles)
-descent18                   5 device-memory, 6 shared, 5 shuffle, 2 register
+descent18                   3 cross-CTA in 1 run, 15 register (1 / 2)
 descent18_masked (K5)       2 shared, 5 shuffle, 2 register, one launch
 descent18_grid2d (K6)       strided 2^11-key tile resident in shared memory:
                             4 x (9 shared + 6 shuffle + 3 register), one launch
+block_sort_unrolled (K3)    165 register (13 / 20), 6 cross-CTA in 3 runs
 ==========================  ===========================================
 """
 
@@ -59,6 +72,7 @@ from subphaser_torch.ops.sort_smem import (
 
 BLOCK_BITS = 18          # the TPU kernels' block: (2048, 128) int32
 BLOCK = 1 << BLOCK_BITS
+CTA_BITS = 15            # cluster kernel: keys of a CTA (a cluster holds a block)
 N_STAGES = 18            # stages per candidate (one full descent's depth)
 _ASCENDING = 62          # _stage's phase whose direction bit is never set
 
@@ -84,6 +98,9 @@ GRID2D_BITS = [i % 7 if i % 2 else 10 + i % 8 for i in range(N_STAGES)]
 
 launches = {"block_sort_unrolled": 0, "block_map": 0, "descent_masked": 0,
             "descent_grid2d": 0}
+# the same launches by the library's entry point (sp_block_sort_cluster,
+# sp_run_stages_cluster, sp_run_stages, ...)
+entry_launches: dict[str, int] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -138,18 +155,36 @@ def _lib():
     lib = kernels.load("sort_primitives")
     if lib.sp_tile_bits() != BLK_BITS:
         raise RuntimeError("sort_primitives library was built with another tile size")
+    if (lib.sp_cluster_tile_bits(), lib.sp_cluster_block_bits()) != (CTA_BITS, BLOCK_BITS):
+        raise RuntimeError("sort_primitives library was built with another cluster block")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sp_block_sort_unrolled.argtypes = [ptr, ptr, i32, ptr]
+    lib.sp_block_sort_cluster.argtypes = [ptr, ptr, i32, ptr]
+    lib.sp_run_stages_cluster.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
     lib.sp_run_stages.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
     lib.sp_run_stages_resident.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
     lib.sp_elementwise_chain.argtypes = [ptr, ptr, i64, i32, ptr]
     lib.sp_transpose_tiles.argtypes = [ptr, ptr, i64, i32, ptr]
-    for fn in (lib.sp_block_sort_unrolled, lib.sp_run_stages, lib.sp_run_stages_resident,
-               lib.sp_elementwise_chain, lib.sp_transpose_tiles):
+    lib.sp_cluster_occupancy.argtypes = [i64, ctypes.POINTER(i32)]
+    for fn in (lib.sp_block_sort_cluster, lib.sp_run_stages_cluster, lib.sp_run_stages,
+               lib.sp_run_stages_resident, lib.sp_elementwise_chain, lib.sp_transpose_tiles,
+               lib.sp_cluster_occupancy):
         fn.restype = ctypes.c_int
     lib.sp_error_string.argtypes = [i32]
     lib.sp_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def clusters_that_fit(n: int = BLOCK, device=None) -> int:
+    """How many clusters of the cluster kernel's launch shape for ``n`` keys
+    (n / 2^15 CTAs, at most 8 a cluster, 132 KB of shared memory each) the
+    card runs at once; the kernel's wrappers raise where it is 0."""
+    lib = _lib()
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.sp_cluster_occupancy(n, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError("sp_cluster_occupancy failed: " + lib.sp_error_string(err).decode())
+    return count.value
 
 
 def _call(lib, entry: str, src: torch.Tensor, dst: torch.Tensor, *args) -> None:
@@ -169,6 +204,7 @@ def _launch(counter: str, entry: str, x: torch.Tensor, *args) -> torch.Tensor:
     dst = torch.empty_like(src)
     _call(_lib(), entry, src, dst, *args)
     launches[counter] += 1
+    entry_launches[entry] = entry_launches.get(entry, 0) + 1
     return dst
 
 
@@ -184,21 +220,12 @@ def _checked_blocks(name: str, x: torch.Tensor) -> int:
 def block_sort_unrolled(x: torch.Tensor) -> torch.Tensor:
     """K3: bitonic phases 1..18 of every 2^18-key block of a power-of-two
     int32 array (phases 1..total_bits when it is smaller), as
-    ``block_sort_plain(x, 18)``: phases 1..13 in one launch unrolled at
-    compile time, each later phase p as its strides 2^(p-1)..2^13 through
-    device memory and a descent 2^12..1 in shared memory, in place."""
+    ``block_sort_plain(x, 18)``: one launch of the cluster kernel, its
+    phases generated inside it."""
     total_bits = _checked_bits("block_sort_unrolled", x)
     if x.device.type == "cpu":
         return block_sort_plain(x, BLOCK_BITS)
-    lib = _lib()
-    src = x.contiguous()
-    dst = torch.empty_like(src)
-    _call(lib, "sp_block_sort_unrolled", src, dst, total_bits)
-    for p in range(BLK_BITS + 1, min(total_bits, BLOCK_BITS) + 1):
-        bits = bytes(range(p - 1, -1, -1))
-        _call(lib, "sp_run_stages", dst, dst, dst.numel(), bits, len(bits), p)
-    launches["block_sort_unrolled"] += 1
-    return dst
+    return _launch("block_sort_unrolled", "sp_block_sort_cluster", x, total_bits)
 
 
 def block_map(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -213,7 +240,7 @@ def block_map(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "transpose8":
         return _launch("block_map", "sp_transpose_tiles", x, n, TRANSPOSE_REPS)
     bits = STAGE_BITS[name]
-    return _launch("block_map", "sp_run_stages", x, n, bytes(bits), len(bits), -1)
+    return _launch("block_map", "sp_run_stages_cluster", x, n, bytes(bits), len(bits), -1)
 
 
 def descent_masked(x: torch.Tensor) -> torch.Tensor:

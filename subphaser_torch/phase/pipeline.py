@@ -68,10 +68,24 @@ class Pipeline:
             disable_circos=False, window_size=1000000,
             cleanup=False, overwrite=False, tile_bases=DEFAULT_TILE_BASES,
             seed=0, low_mem=None, ncpu=None, max_memory=None, trace=None,
-            n_devices=None,
+            n_devices=None, heatmap_colors=("green", "black", "red"),
+            heatmap_options=None, tree_method="FastTree", trimal_options=None,
+            tree_options=None, ggtree_options=None, disable_blocks=False,
+            min_block=100000, alt_cfgs=None, chr_ordered=None,
+            aligner="native", aligner_options="-x asm20 -n 10",
         )
         defaults.update(kargs)
         self.__dict__.update(defaults)
+        if self.aligner in ("minimap2", "unimap"):
+            # reference shells out to minimap2/unimap (__main__.py:699-713);
+            # this framework ships its own anchor-chain aligner and bundles
+            # no external binaries — fail loudly instead of silently
+            # substituting (flag default is "native")
+            raise ValueError(
+                f"-aligner {self.aligner}: external aligners are not bundled "
+                "in subphaser_torch; use -aligner native (anchor-chain aligner "
+                "with PAF output)"
+            )
         self._check_scope()
 
         _check_duplicates(genomes)
@@ -92,9 +106,17 @@ class Pipeline:
         self.sgs, self.chrs, _nsg = cfgmod.parse_configs(
             self.sg_cfgs, self.labels, sep=self.sep
         )
+        if self.alt_cfgs:
+            self.alt_sgs, _, _ = cfgmod.parse_configs(self.alt_cfgs, None, sep=self.sep)
+        else:
+            self.alt_sgs = self.sgs
         if not self.nsg or self.nsg < 2:
             self.nsg = _nsg
         self.sg_color = SGColors(self.colors)
+        # the options of steps not ported yet are parsed all the same: the
+        # LTR trees (A9b), blocks (A10), core figures (A6b) read them
+        self._parse_plot_options()
+        self._parse_aligner_options()
         self._parse_tool_options()
         self.step_seconds: dict[str, float] = {}
         self.map_dense = None
@@ -122,15 +144,102 @@ class Pipeline:
             raise NotImplementedError(
                 "not ported to PyTorch yet: " + "; ".join(todo))
 
+    def _parse_plot_options(self):
+        """Native analogues for -heatmap_options / -ggtree_options.
+
+        The reference forwards these verbatim to R heatmap.2 and ggtree
+        (reference __main__.py:123-127, 200-204; Jellyfish.py:525-603);
+        the matplotlib backends honor the sub-flags with direct analogues
+        (heatmap.2: scale=, main=, xlab=, labCol=, key=; ggtree:
+        branch.length=, layout=) and warn-ignore the rest.
+        """
+        import re
+
+        pair = r"([A-Za-z._]+)\s*=\s*(\"[^\"]*\"|'[^']*'|[^,]+)"
+        self.heatmap_kw: dict = {}
+        known = {"scale", "main", "xlab", "labCol", "key"}
+        for m in re.finditer(pair, self.heatmap_options or ""):
+            kname, val = m.group(1), m.group(2).strip().strip("\"'")
+            if kname == "scale":
+                if val in ("row", "column", "none"):
+                    self.heatmap_kw["scale"] = val
+                else:
+                    logger.warning("-heatmap_options scale=%r: unknown "
+                                   "(row/column/none); ignored", val)
+            elif kname == "main":
+                self.heatmap_kw["title"] = val
+            elif kname == "xlab":
+                if val:
+                    self.heatmap_kw["xlab"] = val
+            elif kname == "labCol":
+                self.heatmap_kw["lab_col"] = val.upper() in ("T", "TRUE")
+            elif kname == "key":
+                self.heatmap_kw["key"] = val.upper() in ("T", "TRUE")
+            else:
+                logger.warning(
+                    "-heatmap_options %s=%r has no native analogue in "
+                    "the matplotlib heatmap (honored: %s); ignored",
+                    kname, val, ", ".join(sorted(known)))
+
+        self.tree_branch_lengths = False
+        for m in re.finditer(pair, self.ggtree_options or ""):
+            kname, val = m.group(1), m.group(2).strip().strip("\"'")
+            if kname == "branch.length":
+                self.tree_branch_lengths = val != "none"
+            elif kname == "layout":
+                if val != "circular":
+                    logger.warning(
+                        "-ggtree_options layout=%r: the native tree "
+                        "plot is circular-only; ignored", val)
+            else:
+                logger.warning(
+                    "-ggtree_options %s=%r has no native analogue "
+                    "(honored: branch.length, layout); ignored",
+                    kname, val)
+
+    def _parse_aligner_options(self):
+        """-aligner_options sub-flags with native analogues: minimap2
+        ``-n`` (min anchors per chain -> min_chain_anchors) and ``-g``
+        (max chain gap -> max_gap); ``-x`` presets and the rest are
+        warn-ignored (reference passes the string verbatim to minimap2,
+        Blocks.py:42-43)."""
+        self.block_min_anchors = 10
+        self.block_max_gap = 100_000
+        t = (self.aligner_options or "").split()
+        i = 0
+        while i < len(t):
+            tok = t[i]
+            if tok == "-n" and i + 1 < len(t):
+                self.block_min_anchors = max(int(t[i + 1]), 1)
+                i += 2
+            elif tok == "-g" and i + 1 < len(t):
+                self.block_max_gap = int(t[i + 1])
+                i += 2
+            elif tok == "-x" and i + 1 < len(t):
+                if t[i + 1] != "asm20":
+                    logger.warning(
+                        "-aligner_options -x %s: the native aligner has no "
+                        "presets; ignored", t[i + 1])
+                i += 2
+            else:
+                logger.warning(
+                    "-aligner_options %r has no native analogue "
+                    "(honored: -n, -g); ignored", tok)
+                i += 1
+
     def _parse_tool_options(self):
-        """The -tesorter_options sub-flags with native analogues, as the
-        JAX Pipeline parses them: -eval/--max-evalue -> the E-value gate
-        (reference api/TEsorter/app.py:93-95), -rule/--pass2-rule
-        id-cov-len -> the pass-2 gates (app.py:118-120), -nodp2 disables
-        pass-2; the rest is warn-ignored."""
+        """The sub-flags of -tesorter_options / -trimal_options /
+        -tree_options with native analogues, as the JAX Pipeline parses
+        them: TEsorter -eval/--max-evalue -> the E-value gate (reference
+        api/TEsorter/app.py:93-95), -rule/--pass2-rule id-cov-len -> the
+        pass-2 gates (app.py:118-120), -nodp2 disables pass-2; trimal -gt X
+        -> the column trim threshold; FastTree/iqtree -b/-B N -> the
+        bootstrap replicate count. The rest is warn-ignored."""
         self.max_evalue = 1e-3
         self.pass2_rule = (80.0, 80.0, 80)
         self.pass2_enabled = True
+        self.trim_gt = None
+        self.tree_boot = 1000 if self.tree_method == "iqtree" else 100
         known_defaults = {"-db", "rexdb", "-dp2"}
         t = (self.tesorter_options or "").split()
         i = 0
@@ -161,6 +270,31 @@ class Pipeline:
                     logger.warning(
                         "-tesorter_options %r has no native analogue; "
                         "ignored", tok)
+                i += 1
+
+        t = (self.trimal_options or "").split()
+        i = 0
+        while i < len(t):
+            if t[i] == "-gt" and i + 1 < len(t):
+                self.trim_gt = float(t[i + 1])
+                i += 2
+            elif t[i] == "-automated1":
+                i += 1  # the default trim heuristic plays this role
+            else:
+                logger.warning(
+                    "-trimal_options %r has no native analogue; ignored",
+                    t[i])
+                i += 1
+
+        t = (self.tree_options or "").split()
+        i = 0
+        while i < len(t):
+            if t[i] in ("-b", "-B", "--boot") and i + 1 < len(t):
+                self.tree_boot = int(t[i + 1])
+                i += 2
+            else:
+                logger.warning(
+                    "-tree_options %r has no native analogue; ignored", t[i])
                 i += 1
 
     # ------------------------------------------------------------------

@@ -238,3 +238,10 @@ def test_cuda_kernels_match_plain(name):
     torch.cuda.synchronize()
     assert sum(sp.launches.values()) == before + (name != "block_sort")
     assert torch.equal(got, sp.plain_versions()[name](x))
+    if name == "block_sort_unrolled":
+        # K3's cluster launch shapes: one CTA with padding, one CTA, clusters
+        # of 2, and 2 and 4 clusters of 8
+        for bits in (10, 15, 16, 19, 20):
+            y = torch.from_numpy(_keys(bits, 1 << max(bits - 18, 0))).cuda()[:1 << bits]
+            y[::777] = -(1 << 31)
+            assert torch.equal(sp.block_sort_unrolled(y), sort_smem.block_sort_plain(y, 18))

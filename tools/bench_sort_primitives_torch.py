@@ -8,7 +8,8 @@ subphaser_torch/ops/sort_primitives.py. It shows what a compare-exchange
 stage costs on the card by where the partner lives (registers, warp
 shuffle, shared memory, device memory); that module's docstring says which
 level each candidate exercises. ``torch_sort`` is the library yardstick
-(the JAX tool's ``lax_sort`` line). ``block_sort`` (the bitonic sort's
+(the JAX tool's ``lax_sort`` line); ``torch_sort_segmented`` is the one
+PyTorch call that computes K3's function (:func:`segmented_sort`). ``block_sort`` (the bitonic sort's
 looped phase (a), phases 1..13) and ``block_sort_unrolled`` (K3: phases
 1..18 of 2^18-key blocks, 1..13 unrolled at compile time) run beside the
 JAX tool's candidates, and so do the two whole sorts
@@ -75,6 +76,17 @@ def sort_input(kind: str, n: int, device, seed: int = 2024) -> torch.Tensor:
     return x
 
 
+def segmented_sort(x: torch.Tensor) -> torch.Tensor:
+    """K3's function in one torch.sort: every 2^18-key block sorted, odd
+    blocks descending (complemented, ~x, which reverses int32 order
+    exactly); an array of one block or less sorted ascending."""
+    if x.numel() <= sp.BLOCK:
+        return torch.sort(x).values
+    y = x.view(-1, sp.BLOCK)
+    m = -(torch.arange(y.shape[0], device=x.device, dtype=torch.int32) & 1)[:, None]
+    return (torch.sort(y ^ m, dim=1).values ^ m).reshape(-1)
+
+
 def bench(fn, x_base: torch.Tensor, iters: int = ITERS, warmup: int = WARMUP):
     """(median seconds of ``fn(x_base ^ salt)``, checksum of the last result)."""
     w = torch.arange(x_base.numel(), dtype=torch.int64, device=x_base.device) & 1023
@@ -99,7 +111,8 @@ def main(argv=None, n_blocks: int = N_BLOCKS) -> dict:
     device = resolve_device("cuda")
     fns = dict(sp.candidates(), bitonic_sort=sort_smem.bitonic_sort_int32_pow2,
                radix_sort=sort_smem.sort_int32_pow2,
-               torch_sort=lambda x: torch.sort(x).values)
+               torch_sort=lambda x: torch.sort(x).values,
+               torch_sort_segmented=segmented_sort)
     unknown = [n for n in names if n not in fns]
     if unknown:
         raise SystemExit(f"unknown candidates {unknown}; known: {', '.join(fns)}")
