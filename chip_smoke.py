@@ -31,12 +31,18 @@ Phases, each printing one line; any failure raises and exits non-zero:
             blocks, a cluster of 8 CTAs a block) and its library call (one
             segmented torch.sort) against block_sort_plain(., 18) at n = 2^10,
             2^15, 2^16, 2^18, 2^19 and 2^25; descent18 of a bitonic input
-            against torch.sort. Prints how many clusters fit on the card,
-            each kernel's, plain version's and K3's library time, and the
-            bytes and operations bounds (int32 min/max at 128 a clock an
-            SM, at the card's maximum SM clock; a block sort's operations
+            against torch.sort; K5 and K6 (descent_masked, descent_grid2d:
+            one launch of the warp kernel a call) at one block, 3 blocks and
+            the tool's 128, on the tool's keys and on full-range keys, and K5
+            on 512-key bitonic groups against a per-group torch.sort. Prints
+            how many clusters fit on the card, each kernel's, plain
+            version's and K3's library time, and the bytes and operations
+            bounds (int32 min/max at 128 a clock an SM, at the card's
+            maximum SM clock; a block sort's operations
             are log2(block) a key, its bitonic network's count is shown
-            beside the bound as network_ops_ms);
+            beside the bound as network_ops_ms), and for K5 and K6 the
+            kernel's device time by torch.profiler (device_ms) and
+            bound_ms / device_ms (share_of_bound);
 4. hmm      the classifier's two scans (viterbi_scan, ssv_scan of
             csrc/hmm_scan.cu) bit-exact against their plain versions on the
             card, at B = 1024 residue rows of L = 64, 1024 and 4096, on the
@@ -144,6 +150,9 @@ PRIMITIVE_KERNELS = {
     "descent_masked": (JAX_TOOL, "def _descent_masked(", ["descent18_masked"]),
     "descent_grid2d": (JAX_TOOL, "def _descent_grid2d(", ["descent18_grid2d"]),
 }
+# K5 and K6's launch counters -> the warp kernel's entry point each calls
+WARP_ENTRIES = {"descent_masked": "sp_descent_masked_warp",
+                "descent_grid2d": "sp_descent_grid2d_warp"}
 
 
 def log(msg: str) -> None:
@@ -189,6 +198,25 @@ def time_ms_batched(fn, reps: int = 3, target_ms: float = 5.0) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def device_ms(fn, x, kernel: str, calls: int = 20) -> float:
+    """Mean device milliseconds of one launch of the kernels whose name
+    holds ``kernel``, over ``calls`` calls of ``fn(x)`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(x)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key and e.device_time_total > 0]
+    launches = sum(e.count for e in events)
+    if launches != calls:
+        raise RuntimeError(f"the profiler saw {launches} launches of {kernel}, not {calls}")
+    return sum(e.device_time_total for e in events) / launches / 1e3
 
 
 def phase_build() -> None:
@@ -358,7 +386,9 @@ def phase_primitives() -> tuple[dict, dict]:
     launches = dict(sp.launches, bitonic_sort=sort_smem.bitonic_launches)
     cluster_entries = {e: sp.entry_launches.get(e, 0)
                        for e in ("sp_block_sort_cluster", "sp_run_stages_cluster")}
-    idle = [name for name, count in {**launches, **cluster_entries}.items() if count <= 0]
+    warp_entries = {e: sp.entry_launches.get(e, 0) for e in WARP_ENTRIES.values()}
+    idle = [name for name, count in {**launches, **cluster_entries, **warp_entries}.items()
+            if count <= 0]
     if idle:
         raise RuntimeError(f"the tool's run launched no kernel of {idle}")
     # K3 one cluster launch a call; the six stage-list bodies on the cluster kernel
@@ -367,7 +397,9 @@ def phase_primitives() -> tuple[dict, dict]:
             or cluster_entries["sp_run_stages_cluster"] * len(sp.BLOCK_MAP_CANDIDATES)
             != launches["block_map"] * n_lists):
         raise RuntimeError(f"K3/K4 did not all take the cluster kernel: {sp.entry_launches}")
-    launches.update(cluster_entries)
+    if any(launches[c] != warp_entries[e] for c, e in WARP_ENTRIES.items()):
+        raise RuntimeError(f"K5/K6 did not all take the warp kernel: {sp.entry_launches}")
+    launches.update(cluster_entries, **warp_entries)
 
     x_tool = tool.make_input(tool.N_BLOCKS, torch.device("cuda")) ^ 1
     n = x_tool.numel()
@@ -429,6 +461,7 @@ def phase_primitives() -> tuple[dict, dict]:
     log("primitive block_sort_unrolled by size " + json.dumps(k3["by_size"]))
     if torch.equal(sp.block_sort_unrolled(x_full), sort_smem.block_sort(x_full)):
         raise RuntimeError("block_sort_unrolled ran the 2^13-key block sort, not K3's 2^18")
+    check_warp_kernels(tool, rows, x_tool, x_full)
     halves = x_tool.view(tool.N_BLOCKS, 2, -1)
     bitonic = torch.cat([halves[:, 0].sort(dim=1).values,
                          halves[:, 1].sort(dim=1, descending=True).values], dim=1)
@@ -440,6 +473,49 @@ def phase_primitives() -> tuple[dict, dict]:
     log(f"phase primitives ok: {len(rows)} candidates bit-exact at n = {n}, K3 and its "
         f"library call at n = 2^10..2^25; tool launches {json.dumps(launches)}")
     return rows, launches
+
+
+def check_warp_kernels(tool, rows: dict, x_tool, x_full) -> None:
+    """K5 and K6: bit-exact at one block, 3 blocks and the tool's size, on
+    the tool's keys and on full-range keys, each call one launch of the warp
+    kernel; their device time and share of the bound; K5 on 512-key bitonic
+    groups against a per-group torch.sort (ascending where index bit 9 is
+    clear, descending where it is set)."""
+    import torch
+
+    from subphaser_torch.ops import sort_primitives as sp
+
+    plains = sp.plain_versions()
+    for counter, entry in WARP_ENTRIES.items():
+        name = PRIMITIVE_KERNELS[counter][2][0]
+        fn, row = sp.candidates()[name], rows[name]
+        row["by_size"] = {}
+        for blocks in (1, 3, tool.N_BLOCKS):
+            inputs = ((x_tool, x_full) if blocks == tool.N_BLOCKS else
+                      (tool.make_input(blocks, torch.device("cuda")) ^ 1,
+                       full_range_keys(blocks * sp.BLOCK, blocks)))
+            err = 0
+            for x in inputs:
+                before = sp.entry_launches.get(entry, 0)
+                got, want = fn(x), plains[name](x)
+                torch.cuda.synchronize()
+                if sp.entry_launches.get(entry, 0) != before + 1:
+                    raise RuntimeError(f"{name} took more or less than one launch of {entry}")
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"{name} disagrees with its plain version at {blocks} blocks")
+                err = max(err, int((got.long() - want.long()).abs().max()))
+            row["by_size"][f"{blocks} blocks"] = {"max_abs_err": err}
+        row["device_ms"] = device_ms(fn, x_tool, "warp_stages")
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        log(f"primitive {name} by size {json.dumps(row['by_size'])}; device_ms "
+            f"{row['device_ms']}, share_of_bound {row['share_of_bound']}")
+    groups = x_tool.view(-1, 2, 256)
+    bitonic = torch.cat([groups[:, 0].sort(dim=1).values,
+                         groups[:, 1].sort(dim=1, descending=True).values], dim=1)
+    want = bitonic.sort(dim=1).values
+    want[1::2] = want[1::2].flip(1)  # bit 9 of the index: every other group
+    if not torch.equal(sp.descent_masked(bitonic.reshape(-1)).view(-1, 512), want):
+        raise RuntimeError("K5 of 512-key bitonic groups disagrees with torch.sort")
 
 
 def gen_genome(out: str, n_sets: int, chrom_mb: float) -> tuple[str, str, str]:
@@ -887,6 +963,12 @@ def main() -> int:
             "library_ms": lead.get("library_ms"),
             "candidates": cands,
         })
+        if name in WARP_ENTRIES:  # the kernel alone, and the sizes checked
+            kernels[-1].update({key: lead[key] for key in
+                                ("device_ms", "share_of_bound", "by_size")})
+            kernels[-1]["max_abs_err"] = max(
+                [kernels[-1]["max_abs_err"]]
+                + [r["max_abs_err"] for r in lead["by_size"].values()])
     unrolled = next(k for k in kernels if k["name"] == "block_sort_unrolled")
     unrolled["block_sort_ms"] = prim_rows["block_sort"]["ms"]  # the looped twin
     unrolled["network_ops_ms"] = prim_rows["block_sort_unrolled"]["network_ops_ms"]

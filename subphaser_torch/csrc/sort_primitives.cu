@@ -9,9 +9,11 @@
 //       per candidate                     -> cluster_stages for the six lists
 //                                            of stages (sp_run_stages_cluster);
 //                                            elementwise_chain, transpose_tiles
-//   K5  same tool, `_descent_masked`      -> tile_stages with a direction bit
-//   K6  same tool, `_descent_grid2d`      -> tile_stages on a strided tile,
-//                                            revisits looped inside the kernel
+//   K5  same tool, `_descent_masked`      -> warp_stages<WrK5>, one warp a
+//                                            512-key group (sp_descent_masked_warp)
+//   K6  same tool, `_descent_grid2d`      -> warp_stages<WrK6>, one warp a
+//                                            strided 2^11-key tile
+//                                            (sp_descent_grid2d_warp)
 //
 // Each computes the function of its TPU kernel on the WHOLE int32 array, not
 // its blocking.
@@ -70,31 +72,44 @@
 // CTA whose missing keys are INT32_MAX: phases 1..15 sort it, and its first
 // n keys are the n keys sorted.
 //
-// K5 and K6 keep the 2^13-key tile of tile_stages (32 KB of static shared
-// memory). Where the partner x[i ^ stride] of a tile's stage lives, by LOCAL
-// stride bit:
-//   0..1   inside the thread's own int4 (registers)
-//   2..6   another lane of the warp (__shfl_xor_sync)
-//   7..12  another warp of the block (shared memory)
-// A tile need not be contiguous: its low 7 index bits are (128 keys = 512
-// bytes, coalesced), the others may be any set of global bits, so K6's
-// strides {2^0..2^6, 2^10, 2^12, 2^14, 2^16} all stay inside one 2^11-key
-// tile and the block stays resident across revisits. They are bound by
-// bytes (8n): every launch reads its input once and writes its output once.
+// K5 and K6: neither function pairs keys of two tiles. K6's 72 stages
+// touch only index bits {0..6, 10, 12, 14, 16}, so a 2^18-key block is 128
+// independent tiles of 2^11 keys; K5's 9 stages touch bits 0..8 and take
+// their direction from bit 9, so it is independent 512-key groups of one
+// direction each. warp_stages gives each tile to one warp, in registers: a
+// lane holds 2^slot int4 (4 << slot keys, register r = 4 * slot + component).
+// Index bits of a tile's keys by where they live:
+//
+//   tile  component  lane   slot          tile id, low to high     direction
+//   K5    0..1       2..6   7 8           9..                      9
+//   K6    0..1       2..6   10 12 14 16   7 8 9 11 13 15 17..      none
+//
+// A stage on a component or slot bit is a compare-exchange of two registers
+// with compile-time indices; a stage on a lane bit is one __shfl_xor_sync a
+// key with a compile-time lane mask, the lower lane keeping the min. The
+// schedule (WR_K5_BITS; WR_K6_BITS, WR_K6_REVISITS times) is unrolled by
+// templates (one revisit of K6 unrolled, the revisits a loop): no shared
+// memory, no barrier, no stage list read at run time.
+// A slot of a warp is 32 lanes x 16 bytes = 512 contiguous bytes, so every
+// lane starts all its 16-byte loads before the first stage, and its stores
+// mirror them. K5's direction is one per warp: where the tile's bit 9 is set
+// its keys are complemented (~x, an exact reversal of int32 order) after the
+// load and before the store, and every stage is ascending. At 128 min/max a
+// clock an SM both are bound by bytes (8n; K6's 72 stages of n min/max come
+// to 0.9 of that). The card runs int32 min/max (VIMNMX) at half that
+// rate, and a shuffle stage costs two a key (a predicated min for the lower
+// lane, a predicated max for the upper), so K6's 96n min/max, not its bytes,
+// set its pace; K5 is its one pass through memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace cg = cooperative_groups;
 
-#define TILE_BITS 13
-#define TILE (1 << TILE_BITS)
-#define THREADS 512
-#define LOW_BITS 7        // contiguous low index bits of every tile
-#define SMEM_LEVEL 7      // local stride bits >= this go through shared memory
 #define MAX_STAGES 96
-#define MAX_HIGH (TILE_BITS - LOW_BITS)
 #define TDIM 128          // transpose tile edge
 #define TPAD (TDIM + 1)   // padded row: conflict-free column access
 
@@ -109,142 +124,185 @@ namespace cg = cooperative_groups;
 #define CL_SMEM_BYTES (CL_SMEM_WORDS * 4)
 #define SP_ERR_NO_CLUSTER (-1)             // no cluster of the launch's shape fits
 
+// the warp kernel (K5, K6)
+#define WR_WARPS 4                         // warps (tiles) a CTA
+#define WR_LANE_LO 2                       // index bits 2..6 are the lane
+#define WR_LANE_BITS 5
+constexpr int WR_K5_BITS[] = {8, 7, 6, 5, 4, 3, 2, 1, 0};  // stride bits, in order
+constexpr int WR_K5_SLOTS[] = {7, 8};                       // index bit of each slot bit
+#define WR_K5_DIR_BIT 9
+constexpr int WR_K6_BITS[] = {10, 1, 12, 3, 14, 5, 16, 0, 10, 2, 12, 4, 14, 6, 16, 1, 10, 3};
+constexpr int WR_K6_SLOTS[] = {10, 12, 14, 16};
+#define WR_K6_REVISITS 4
+
 struct StageList {
     int n;
     unsigned char sb[MAX_STAGES];  // LOCAL bit of each stage's stride
 };
 
-// Local index bit j of a tile is global bit j for j < lowb and global bit
-// high[j - lowb] above; the tile id fills the remaining global bits.
-struct TileMap {
-    int tile_bits;
-    int lowb;
-    int nhigh;
-    int high[MAX_HIGH];
+// ---------------------------------------------------------------------------
+// warp_stages: K5 and K6, one tile a warp (see the note above)
+// ---------------------------------------------------------------------------
+#define WR_LEN(a) ((int)(sizeof(a) / sizeof((a)[0])))
+
+// A schedule: the stride bits of one revisit in order, run `revisits`
+// times; the index bit of each slot bit; its direction bit (-1: ascending
+// throughout).
+struct WrK5 {
+    static constexpr int slot_bits = WR_LEN(WR_K5_SLOTS);
+    static constexpr int stages = WR_LEN(WR_K5_BITS);
+    static constexpr int revisits = 1;
+    static constexpr int dir_bit = WR_K5_DIR_BIT;
+    __host__ __device__ static constexpr int bit(int i) { return WR_K5_BITS[i]; }
+    __host__ __device__ static constexpr int slot(int k) { return WR_K5_SLOTS[k]; }
+};
+struct WrK6 {
+    static constexpr int slot_bits = WR_LEN(WR_K6_SLOTS);
+    static constexpr int stages = WR_LEN(WR_K6_BITS);
+    static constexpr int revisits = WR_K6_REVISITS;
+    static constexpr int dir_bit = -1;
+    __host__ __device__ static constexpr int bit(int i) { return WR_K6_BITS[i]; }
+    __host__ __device__ static constexpr int slot(int k) { return WR_K6_SLOTS[k]; }
 };
 
-__device__ __forceinline__ long long tile_base(long long tile, const TileMap& m) {
+// The register bit (of r = 4 * slot + component) that holds index bit b,
+// or -1 where b is not in registers: the WR_LANE_LO component bits, then the
+// slot bits.
+template <class S>
+__host__ __device__ constexpr int wr_reg_bit(int b) {
+    if (b < WR_LANE_LO) return b;
+    for (int k = 0; k < S::slot_bits; ++k)
+        if (S::slot(k) == b) return WR_LANE_LO + k;
+    return -1;
+}
+
+// The index bits a tile holds (component, lane and slot bits).
+template <class S>
+__host__ __device__ constexpr unsigned long long wr_local_mask() {
+    unsigned long long m = (1ull << (WR_LANE_LO + WR_LANE_BITS)) - 1;
+    for (int k = 0; k < S::slot_bits; ++k) m |= 1ull << S::slot(k);
+    return m;
+}
+
+// One above the highest index bit a tile holds.
+template <class S>
+__host__ __device__ constexpr int wr_top() {
+    int t = 0;
+    while (wr_local_mask<S>() >> t) ++t;
+    return t;
+}
+
+// Offset of slot s from the tile's slot 0.
+template <class S>
+__host__ __device__ constexpr long long wr_slot_offset(int s) {
     long long g = 0;
-    int hi = 0, bit = m.lowb;
-    while (tile) {
-        if (hi < m.nhigh && m.high[hi] == bit) {
-            ++hi;
-        } else {
-            g |= (tile & 1) << bit;
-            tile >>= 1;
+    for (int k = 0; k < S::slot_bits; ++k)
+        if ((s >> k) & 1) g |= 1LL << S::slot(k);
+    return g;
+}
+
+// Index of tile t's first key: the bits of t deposited, low to high, into
+// the index bits the tile does not hold.
+template <class S>
+__device__ __forceinline__ long long wr_tile_base(long long t) {
+    constexpr unsigned long long local = wr_local_mask<S>();
+    constexpr int top = wr_top<S>();
+    long long g = 0;
+    int k = 0;
+#pragma unroll
+    for (int b = 0; b < top; ++b) {
+        if (!((local >> b) & 1)) {
+            g |= ((t >> k) & 1) << b;
+            ++k;
         }
-        ++bit;
     }
-    return g;
+    return g | ((t >> k) << top);
 }
 
-__device__ __forceinline__ long long local_offset(int l, const TileMap& m) {
-    long long g = l & ((1 << m.lowb) - 1);
-    const int lh = l >> m.lowb;
-    for (int i = 0; i < m.nhigh; ++i) g |= (long long)((lh >> i) & 1) << m.high[i];
-    return g;
+template <class S, int s>
+__device__ __forceinline__ void wr_load_slot(const int* p, int* v) {
+    constexpr long long off = wr_slot_offset<S>(s);
+    const int4 q = __ldcs(reinterpret_cast<const int4*>(p + off));  // read once
+    v[4 * s] = q.x;
+    v[4 * s + 1] = q.y;
+    v[4 * s + 2] = q.z;
+    v[4 * s + 3] = q.w;
 }
 
-// Direction of the pair whose lower local index is i: descending iff local
-// bit dir_bit of i is set (dir_bit < 0: ascending everywhere), the other way
-// round where `flip` (a direction bit above the tile, one per tile) is set.
-__device__ __forceinline__ bool pair_desc(int i, int dir_bit, bool flip) {
-    return (dir_bit >= 0 && ((i >> dir_bit) & 1)) != flip;
+template <class S, int s>
+__device__ __forceinline__ void wr_store_slot(int* p, const int* v) {
+    constexpr long long off = wr_slot_offset<S>(s);
+    __stcs(reinterpret_cast<int4*>(p + off),
+           make_int4(v[4 * s], v[4 * s + 1], v[4 * s + 2], v[4 * s + 3]));
 }
 
-__device__ __forceinline__ void cmpx_reg(int& a, int& b, bool desc) {
-    const int mn = min(a, b), mx = max(a, b);
-    a = desc ? mx : mn;
-    b = desc ? mn : mx;
+template <class S, int... s>
+__device__ __forceinline__ void wr_load(const int* p, int* v, std::integer_sequence<int, s...>) {
+    (wr_load_slot<S, s>(p, v), ...);
 }
 
-// One stage at local stride bit sb < SMEM_LEVEL on the four keys v[] that
-// start at local index l (l % 4 == 0, lane = (l >> 2) % 32).
-__device__ __forceinline__ void reg_stage(int (&v)[4], int sb, int l, int dir_bit, bool flip) {
-    if (sb == 0) {
-        cmpx_reg(v[0], v[1], pair_desc(l, dir_bit, flip));
-        cmpx_reg(v[2], v[3], pair_desc(l + 2, dir_bit, flip));
-    } else if (sb == 1) {
-        cmpx_reg(v[0], v[2], pair_desc(l, dir_bit, flip));
-        cmpx_reg(v[1], v[3], pair_desc(l + 1, dir_bit, flip));
+template <class S, int... s>
+__device__ __forceinline__ void wr_store(int* p, const int* v, std::integer_sequence<int, s...>) {
+    (wr_store_slot<S, s>(p, v), ...);
+}
+
+// Stage i of schedule S: an ascending compare-exchange at stride 2^S::bit(i).
+template <class S, int i>
+__device__ __forceinline__ void wr_stage(int* v, int lane) {
+    constexpr int KPL = 4 << S::slot_bits;
+    constexpr int b = S::bit(i);
+    constexpr int j = wr_reg_bit<S>(b);
+    static_assert(j >= 0 || (b >= WR_LANE_LO && b < WR_LANE_LO + WR_LANE_BITS),
+                  "a stage's stride bit lies outside the tile");
+    if constexpr (j >= 0) {
+#pragma unroll
+        for (int r = 0; r < KPL; ++r) {
+            if ((r >> j) & 1) continue;
+            const int a = v[r], c = v[r | (1 << j)];
+            v[r] = min(a, c);
+            v[r | (1 << j)] = max(a, c);
+        }
     } else {
-        const int stride = 1 << sb;
-        const bool is_lo = (l & stride) == 0;
+        constexpr int m = 1 << (b - WR_LANE_LO);
+        const bool lower = (lane & m) == 0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int other = __shfl_xor_sync(0xffffffffu, v[e], stride >> 2);
-            const bool desc = pair_desc((l + e) & ~stride, dir_bit, flip);
-            v[e] = (is_lo != desc) ? min(v[e], other) : max(v[e], other);
+        for (int r = 0; r < KPL; ++r) {
+            const int o = __shfl_xor_sync(0xffffffffu, v[r], m);
+            v[r] = lower ? min(v[r], o) : max(v[r], o);
         }
     }
 }
 
-// Runs `revisits` times the stage list on one tile held in shared memory.
-// dir_bit at or above the tile's bits (contiguous tiles only) is a global
-// index bit: one direction for the whole tile.
-// The two structs are indexed at run time: as __grid_constant__ they are read
-// in place from the parameter bank; without it every thread first copies
-// them to its local-memory stack, which tripled the time of a launch.
-__global__ void __launch_bounds__(THREADS, 4)
-tile_stages(const int* src, int* dst, const __grid_constant__ StageList st,
-            const __grid_constant__ TileMap map, int dir_bit, int revisits) {
-    __shared__ __align__(16) int s[TILE];
-    const int ntile = 1 << map.tile_bits;
-    const int nchunk = ntile >> 2;
-    const long long base = tile_base(blockIdx.x, map);
-    const bool flip = dir_bit >= map.tile_bits && ((base >> dir_bit) & 1);
-    if (dir_bit >= map.tile_bits) dir_bit = -1;
-    // all of a thread's loads start before the first is used, so each
-    // thread keeps up to four 16-byte requests in flight
-    int4 q[TILE / 4 / THREADS];
+template <class S, int... i>
+__device__ __forceinline__ void wr_run(int* v, int lane, std::integer_sequence<int, i...>) {
+    (wr_stage<S, i>(v, lane), ...);
+}
+
+// One warp a tile: `tiles` tiles of 4 << (S::slot_bits + WR_LANE_BITS) keys.
+template <class S>
+__global__ void __launch_bounds__(WR_WARPS * 32)
+warp_stages(const int* __restrict__ src, int* __restrict__ dst, long long tiles) {
+    constexpr int KPL = 4 << S::slot_bits;
+    constexpr int SLOTS = 1 << S::slot_bits;
+    const long long tile = (long long)blockIdx.x * WR_WARPS + (threadIdx.x >> 5);
+    if (tile >= tiles) return;  // whole warps only: no shuffle loses its partner
+    const int lane = threadIdx.x & 31;
+    const long long base = wr_tile_base<S>(tile) + (lane << WR_LANE_LO);
+    int v[KPL];
+    wr_load<S>(src + base, v, std::make_integer_sequence<int, SLOTS>{});
+    // a descending tile as the complement of its keys (0 where S has no direction)
+    constexpr int d = S::dir_bit < 0 ? 0 : S::dir_bit;
+    const int flip = S::dir_bit < 0 ? 0 : -(int)((base >> d) & 1);
 #pragma unroll
-    for (int k = 0; k < TILE / 4 / THREADS; ++k) {
-        const int c = threadIdx.x + k * blockDim.x;
-        if (c < nchunk)
-            q[k] = *reinterpret_cast<const int4*>(src + base + local_offset(c << 2, map));
-    }
+    for (int r = 0; r < KPL; ++r) v[r] ^= flip;
+    // one revisit unrolled, the revisits a loop: all of K6's 72 stages
+    // unrolled ran slower (a larger body than the instruction cache keeps)
+#pragma unroll 1
+    for (int rv = 0; rv < S::revisits; ++rv)
+        wr_run<S>(v, lane, std::make_integer_sequence<int, S::stages>{});
 #pragma unroll
-    for (int k = 0; k < TILE / 4 / THREADS; ++k) {
-        const int c = threadIdx.x + k * blockDim.x;
-        if (c < nchunk) *reinterpret_cast<int4*>(s + (c << 2)) = q[k];
-    }
-    __syncthreads();
-    for (int r = 0; r < revisits; ++r) {
-        int i = 0;
-        while (i < st.n) {
-            const int sb = st.sb[i];
-            if (sb >= SMEM_LEVEL) {
-                const int stride = 1 << sb;
-                for (int t = threadIdx.x; t < (ntile >> 1); t += blockDim.x) {
-                    const int lo = ((t >> sb) << (sb + 1)) | (t & (stride - 1));
-                    const int a = s[lo], b = s[lo | stride];
-                    if ((a > b) != pair_desc(lo, dir_bit, flip)) {
-                        s[lo] = b;
-                        s[lo | stride] = a;
-                    }
-                }
-                ++i;
-            } else {
-                // a run of register/shuffle stages: one trip through registers
-                int j = i;
-                while (j < st.n && st.sb[j] < SMEM_LEVEL) ++j;
-                for (int c = threadIdx.x; c < nchunk; c += blockDim.x) {
-                    const int l = c << 2;
-                    const int4 w = *reinterpret_cast<const int4*>(s + l);
-                    int v[4] = {w.x, w.y, w.z, w.w};
-                    for (int a = i; a < j; ++a) reg_stage(v, st.sb[a], l, dir_bit, flip);
-                    *reinterpret_cast<int4*>(s + l) = make_int4(v[0], v[1], v[2], v[3]);
-                }
-                i = j;
-            }
-            __syncthreads();
-        }
-    }
-    for (int c = threadIdx.x; c < nchunk; c += blockDim.x) {
-        const int l = c << 2;
-        *reinterpret_cast<int4*>(dst + base + local_offset(l, map)) =
-            *reinterpret_cast<const int4*>(s + l);
-    }
+    for (int r = 0; r < KPL; ++r) v[r] ^= flip;
+    wr_store<S>(dst + base, v, std::make_integer_sequence<int, SLOTS>{});
 }
 
 // x -> max(x, x - 1), `iters` times in a dependent chain; x - 1 wraps like
@@ -650,8 +708,6 @@ static int cl_launch(const void* src, void* dst, long long n, int sort_bits,
     return (int)cudaGetLastError();
 }
 
-extern "C" int sp_tile_bits(void) { return TILE_BITS; }
-
 // Every entry point returns the first cudaError_t of its launches (0 on
 // success), or SP_ERR_NO_CLUSTER, and does not synchronise.
 
@@ -694,67 +750,26 @@ extern "C" int sp_run_stages_cluster(const void* src, void* dst, long long n,
     return cl_launch(src, dst, n, 0, st, dir_bit, stream);
 }
 
-static bool stages_valid(long long n, const unsigned char* bits, int n_stages) {
-    if (n <= 0 || n % TILE != 0 || n_stages < 0) return false;
-    for (int i = 0; i < n_stages; ++i)
-        if (bits[i] > 30 || n % (2LL << bits[i]) != 0) return false;
-    return true;
-}
-
-// The stages bits[0..n_stages) (stride 2^bits[i] < 2^TILE_BITS) in order over
-// src[0..n) into dst, in one tile_stages launch on contiguous tiles.
-// dir_bit >= 0: pairs sort descending where that index bit is set; it must
-// lie above every stride.
-extern "C" int sp_run_stages(const void* src_p, void* dst_p, long long n,
-                             const unsigned char* bits, int n_stages, int dir_bit,
-                             void* stream_p) {
-    if (!stages_valid(n, bits, n_stages) || n_stages > MAX_STAGES || dir_bit > 62)
+// K5 and K6 over src[0..n) (whole 2^18-key blocks) into dst: one launch of
+// warp_stages, one warp a tile.
+template <class S>
+static int wr_launch(const void* src, void* dst, long long n, void* stream) {
+    constexpr int tile_bits = WR_LANE_LO + WR_LANE_BITS + S::slot_bits;
+    if (n <= 0 || n > (1LL << 31) || n % (1LL << CL_BLOCK_BITS) != 0)
         return (int)cudaErrorInvalidValue;
-    StageList st;
-    st.n = n_stages;
-    for (int i = 0; i < n_stages; ++i) {
-        if (bits[i] >= TILE_BITS || (dir_bit >= 0 && bits[i] >= dir_bit))
-            return (int)cudaErrorInvalidValue;
-        st.sb[i] = bits[i];
-    }
-    const TileMap map = {TILE_BITS, TILE_BITS, 0, {0}};
-    tile_stages<<<(unsigned)(n / TILE), THREADS, 0, static_cast<cudaStream_t>(stream_p)>>>(
-        static_cast<const int*>(src_p), static_cast<int*>(dst_p), st, map, dir_bit, 1);
+    const long long tiles = n >> tile_bits;
+    warp_stages<S><<<(unsigned)((tiles + WR_WARPS - 1) / WR_WARPS), WR_WARPS * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(src), static_cast<int*>(dst), tiles);
     return (int)cudaGetLastError();
 }
 
-// `revisits` times the ascending stages bits[0..n_stages) in ONE launch:
-// the tile is the low LOW_BITS index bits plus every distinct stride bit
-// above them (at most MAX_HIGH), so all stages stay on chip.
-extern "C" int sp_run_stages_resident(const void* src_p, void* dst_p, long long n,
-                                      const unsigned char* bits, int n_stages,
-                                      int revisits, void* stream_p) {
-    const int* src = static_cast<const int*>(src_p);
-    int* dst = static_cast<int*>(dst_p);
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_p);
-    if (!stages_valid(n, bits, n_stages) || n_stages > MAX_STAGES || revisits < 1)
-        return (int)cudaErrorInvalidValue;
-    TileMap map = {LOW_BITS, LOW_BITS, 0, {0}};
-    for (int b = LOW_BITS; b <= 30; ++b) {
-        bool used = false;
-        for (int i = 0; i < n_stages; ++i) used = used || bits[i] == b;
-        if (!used) continue;
-        if (map.nhigh == MAX_HIGH) return (int)cudaErrorInvalidValue;
-        map.high[map.nhigh++] = b;
-    }
-    map.tile_bits = LOW_BITS + map.nhigh;
-    StageList st;
-    st.n = n_stages;
-    for (int i = 0; i < n_stages; ++i) {
-        int local = bits[i];
-        for (int h = 0; h < map.nhigh; ++h)
-            if (map.high[h] == bits[i]) local = LOW_BITS + h;
-        st.sb[i] = (unsigned char)local;
-    }
-    const int ntile = 1 << map.tile_bits;
-    const int threads = (ntile >> 2) < THREADS ? (ntile >> 2) : THREADS;
-    tile_stages<<<(unsigned)(n / ntile), threads, 0, stream>>>(src, dst, st, map, -1, revisits);
-    return (int)cudaGetLastError();
+extern "C" int sp_descent_masked_warp(const void* src, void* dst, long long n, void* stream) {
+    return wr_launch<WrK5>(src, dst, n, stream);
+}
+
+extern "C" int sp_descent_grid2d_warp(const void* src, void* dst, long long n, void* stream) {
+    return wr_launch<WrK6>(src, dst, n, stream);
 }
 
 extern "C" int sp_elementwise_chain(const void* src_p, void* dst_p, long long n, int iters,

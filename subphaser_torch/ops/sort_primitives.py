@@ -16,8 +16,11 @@ of whole 2^18-key blocks (the TPU's VMEM block, (2048, 128)):
   per candidate -> :func:`block_map`, same candidate names. The six lists
   of stages run on ``cluster_stages`` too, one launch a call.
 - K5 ``_descent_masked`` -> :func:`descent_masked`.
-- K6 ``_descent_grid2d`` -> :func:`descent_grid2d`. K5 and K6 keep the
-  2^13-key tiles of ``tile_stages`` (ops/sort_smem.BLK_BITS).
+- K6 ``_descent_grid2d`` -> :func:`descent_grid2d`. Neither pairs keys of
+  two tiles (K5: 512-key groups, one direction each; K6: 2^11-key tiles of
+  index bits 0..6, 10, 12, 14, 16), so each is one launch of
+  ``warp_stages``: one warp a tile, its keys in registers, every stage a
+  register compare-exchange or a warp shuffle.
 
 A CPU tensor takes the plain version; a CUDA tensor launches
 ``csrc/sort_primitives.cu`` or raises. ``launches[name]`` counts the calls
@@ -33,8 +36,9 @@ of layout is one round trip through shared memory: inside each warp
 between the first two, across the CTA's warps to or from the third), b
 15..17 in another CTA of the cluster (a run of such stages is one gather
 from the CTAs it spans and one scatter back, through distributed shared
-memory). In a 2^13-key tile (K5, K6): b 0..1 registers, 2..6 a warp
-shuffle, 7..12 shared memory. So the candidates exercise:
+memory). In ``warp_stages`` (K5, K6): b 0..1 and the tile's slot bits
+(K5 7..8, K6 10, 12, 14, 16) the lane's own registers, b 2..6 a warp
+shuffle. So the candidates exercise:
 
 ==========================  ===========================================
 candidate                   stages by where the partner lives (changes
@@ -49,9 +53,10 @@ sublane_reshape_vreg        12 register (1 / 0), 6 cross-CTA in 2 runs
 sublane_roll_stages         15 register (2 / 0), 3 cross-CTA in 1 run
 transpose8                  shared memory (8 transposes of 128 x 128 tiles)
 descent18                   3 cross-CTA in 1 run, 15 register (1 / 2)
-descent18_masked (K5)       2 shared, 5 shuffle, 2 register, one launch
-descent18_grid2d (K6)       strided 2^11-key tile resident in shared memory:
-                            4 x (9 shared + 6 shuffle + 3 register), one launch
+descent18_masked (K5)       one warp a 512-key group: 5 shuffle,
+                            4 register, one launch
+descent18_grid2d (K6)       one warp a strided 2^11-key tile: 4 x (6
+                            shuffle + 12 register), one launch
 block_sort_unrolled (K3)    165 register (13 / 20), 6 cross-CTA in 3 runs
 ==========================  ===========================================
 """
@@ -59,11 +64,11 @@ block_sort_unrolled (K3)    165 register (13 / 20), 6 cross-CTA in 3 runs
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from subphaser_torch.ops.sort_smem import (
-    BLK_BITS,
     _check_tensor,
     _checked_bits,
     _stage,
@@ -99,7 +104,7 @@ GRID2D_BITS = [i % 7 if i % 2 else 10 + i % 8 for i in range(N_STAGES)]
 launches = {"block_sort_unrolled": 0, "block_map": 0, "descent_masked": 0,
             "descent_grid2d": 0}
 # the same launches by the library's entry point (sp_block_sort_cluster,
-# sp_run_stages_cluster, sp_run_stages, ...)
+# sp_run_stages_cluster, sp_descent_masked_warp, ...)
 entry_launches: dict[str, int] = {}
 
 
@@ -149,24 +154,24 @@ def descent_grid2d_plain(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
+@functools.cache
 def _lib():
+    """The library, bound once a process."""
     from subphaser_torch import kernels
 
     lib = kernels.load("sort_primitives")
-    if lib.sp_tile_bits() != BLK_BITS:
-        raise RuntimeError("sort_primitives library was built with another tile size")
     if (lib.sp_cluster_tile_bits(), lib.sp_cluster_block_bits()) != (CTA_BITS, BLOCK_BITS):
         raise RuntimeError("sort_primitives library was built with another cluster block")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sp_block_sort_cluster.argtypes = [ptr, ptr, i32, ptr]
     lib.sp_run_stages_cluster.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
-    lib.sp_run_stages.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
-    lib.sp_run_stages_resident.argtypes = [ptr, ptr, i64, ctypes.c_char_p, i32, i32, ptr]
+    lib.sp_descent_masked_warp.argtypes = [ptr, ptr, i64, ptr]
+    lib.sp_descent_grid2d_warp.argtypes = [ptr, ptr, i64, ptr]
     lib.sp_elementwise_chain.argtypes = [ptr, ptr, i64, i32, ptr]
     lib.sp_transpose_tiles.argtypes = [ptr, ptr, i64, i32, ptr]
     lib.sp_cluster_occupancy.argtypes = [i64, ctypes.POINTER(i32)]
-    for fn in (lib.sp_block_sort_cluster, lib.sp_run_stages_cluster, lib.sp_run_stages,
-               lib.sp_run_stages_resident, lib.sp_elementwise_chain, lib.sp_transpose_tiles,
+    for fn in (lib.sp_block_sort_cluster, lib.sp_run_stages_cluster, lib.sp_descent_masked_warp,
+               lib.sp_descent_grid2d_warp, lib.sp_elementwise_chain, lib.sp_transpose_tiles,
                lib.sp_cluster_occupancy):
         fn.restype = ctypes.c_int
     lib.sp_error_string.argtypes = [i32]
@@ -201,6 +206,8 @@ def _launch(counter: str, entry: str, x: torch.Tensor, *args) -> torch.Tensor:
     """Calls the library's ``entry(src, dst, *args, stream)`` with ``x`` as
     src and a new tensor as dst, which it returns."""
     src = x.contiguous()
+    if src.data_ptr() % 16:  # the warp and elementwise kernels move 16-byte words
+        src = src.clone()
     dst = torch.empty_like(src)
     _call(_lib(), entry, src, dst, *args)
     launches[counter] += 1
@@ -248,18 +255,16 @@ def descent_masked(x: torch.Tensor) -> torch.Tensor:
     n = _checked_blocks("descent_masked", x)
     if x.device.type == "cpu":
         return descent_masked_plain(x)
-    return _launch("descent_masked", "sp_run_stages", x, n, bytes(MASKED_BITS),
-                   len(MASKED_BITS), MASKED_P)
+    return _launch("descent_masked", "sp_descent_masked_warp", x, n)
 
 
 def descent_grid2d(x: torch.Tensor) -> torch.Tensor:
-    """K6 (see :func:`descent_grid2d_plain`); the revisits are a loop
-    inside one launch, the tile staying in shared memory between them."""
+    """K6 (see :func:`descent_grid2d_plain`): all four revisits in one
+    launch, each tile in one warp's registers throughout."""
     n = _checked_blocks("descent_grid2d", x)
     if x.device.type == "cpu":
         return descent_grid2d_plain(x)
-    return _launch("descent_grid2d", "sp_run_stages_resident", x, n, bytes(GRID2D_BITS),
-                   len(GRID2D_BITS), GRID2D_REVISITS)
+    return _launch("descent_grid2d", "sp_descent_grid2d_warp", x, n)
 
 
 def candidates() -> dict:

@@ -47,6 +47,7 @@ def test_no_jax_or_reference_package_in_sources():
     files = (list(PORT.rglob("*.py")) + list((PORT / "csrc").iterdir())
              + [ROOT / "chip_smoke.py", TOOL, TOOL.with_name("profile_sort_primitives_torch.py"),
                 TOOL.with_name("profile_cluster_stages_torch.py"),
+                TOOL.with_name("profile_warp_stages_torch.py"),
                 TOOL.with_name("ab_phase_main.py")])
     assert len(files) > 35
     names = {p.name for p in files}

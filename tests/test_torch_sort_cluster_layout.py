@@ -275,8 +275,7 @@ def test_k4_lists_match_their_plain_versions(name):
 
 @pytest.mark.parametrize("dir_bit", [12, 18])
 def test_lists_with_a_direction_bit(dir_bit):
-    """sp_run_stages_cluster's dir_bit (the direction rule of K5 and of
-    tile_stages): a complement around the list."""
+    """sp_run_stages_cluster's dir_bit: a complement around the list."""
     x = _keys(2 * sp.BLOCK, dir_bit)
     bits = [b for b in sp.STAGE_BITS["descent18"] if b < dir_bit]
     got = Emulation().run(x, bits=bits, dir_bit=dir_bit)

@@ -238,6 +238,22 @@ def test_cuda_kernels_match_plain(name):
     torch.cuda.synchronize()
     assert sum(sp.launches.values()) == before + (name != "block_sort")
     assert torch.equal(got, sp.plain_versions()[name](x))
+    if name in ("descent18_masked", "descent18_grid2d"):
+        # K5 and K6 at one block and at 3: one launch of their warp kernel each
+        entry = {"descent18_masked": "sp_descent_masked_warp",
+                 "descent18_grid2d": "sp_descent_grid2d_warp"}[name]
+        for blocks in (1, 3):
+            y = torch.from_numpy(_keys(blocks, blocks)).cuda()
+            y[::777] = -(1 << 31)
+            y[5::779] = (1 << 31) - 1
+            before = sp.entry_launches.get(entry, 0)
+            got = sp.candidates()[name](y)
+            torch.cuda.synchronize()
+            assert sp.entry_launches[entry] == before + 1
+            assert torch.equal(got, sp.plain_versions()[name](y))
+        # a view that does not start on a 16-byte boundary
+        y = torch.from_numpy(_keys(12, 2)).cuda()[1:1 + sp.BLOCK]
+        assert torch.equal(sp.candidates()[name](y), sp.plain_versions()[name](y))
     if name == "block_sort_unrolled":
         # K3's cluster launch shapes: one CTA with padding, one CTA, clusters
         # of 2, and 2 and 4 clusters of 8
