@@ -54,10 +54,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
             times, and on the warp route the block route's time on the same
             inputs (timed by CUDA events over back-to-back calls of ~5 ms);
 5. parity   the port's CLI on a 12 Mb wheat-like genome on the card and on
-            the CPU (plain versions), at k = 15 with the LTR step on
-            (-hmm_db, -disable_ltrtree) and at k = 17 (pair codes): the five
-            count/map/enrich files and the seven LTR files must be
-            byte-identical and the subgenome assignments equal;
+            the CPU (plain versions), at k = 15 with the LTR step and its
+            trees on (-hmm_db: the domain route, progressive MSA and
+            bootstrap NJ), again at k = 15 without -hmm_db (the sketch
+            route, from the first run's core checkpoints), and at k = 17
+            (pair codes): the five count/map/enrich files, the seven LTR
+            files and every tree file (.aln, .trimal, .tree.nwk, .tree.map)
+            must be byte-identical, each route must write a tree, and the
+            subgenome assignments must be equal;
 6. main     the port's CLI at real size: tools/gen_wheat_scale.py 2 80, a
             480 Mb allohexaploid (2 homoeologous sets x A/B/D x 80 Mb), with
             -min_freq 200 and the default 1000 bootstrap replicates. All six
@@ -68,14 +72,38 @@ Phases, each printing one line; any failure raises and exits non-zero:
             through counting and the searchsorted mapping path. Same checks,
             and the significant k-mers must be 17 letters of ACGT.
 8. ltr      the slice at real size: the 480 Mb genome through the CLI with
-            the LTR step on (-hmm_db of its fixture database,
-            -disable_ltrtree), in a copy of phase main's tmpdir so the core
-            steps load from their checkpoints. LTRs must be found, classified
-            and SG-enriched, and both scans must launch, all by the warp
-            route. Prints seconds of detection, classification pass 1 and 2,
-            feature mapping, enrichment and ages, the counts, launches and
-            peak memory, and per scan and length bucket the launches, rows
-            and ms between CUDA events around each wrapper call.
+            the default LTR step, trees included (-hmm_db of its fixture
+            database), in a copy of phase main's tmpdir so the core steps
+            load from their checkpoints. LTRs must be found, classified and
+            SG-enriched, and both scans must launch, all by the warp route;
+            every superfamily group of >= 4 enriched LTRs must get a
+            .tree.nwk and a .tree.map, and match_counts must launch
+            (tree_boot + 1) times for each group of the alignment route.
+            Prints seconds of detection, classification pass 1 and 2,
+            feature mapping, enrichment, ages and trees, the counts,
+            launches and peak memory, per tree group its leaves and aligned
+            and trimmed columns, and per scan and length bucket the
+            launches, rows and ms between CUDA events around each wrapper
+            call;
+9. trees    on phase ltr's own data: the sketch route at real size
+            (build_ltr_trees without domain peptides on the enriched LTRs:
+            subsampled to 1000, 499,500 sketch pairs); the largest tree's
+            bootstrap NJ rebuilt from its .trimal (it must give the same
+            tree file), timed, with one NJ tree and one bipartition set
+            alone: where the alignment route's time goes; match_counts
+            (csrc/tree_counts.cu) bit-exact against its plain version on the
+            largest group's trimmed alignment at its real n and L, with
+            ones and with a bootstrap (multinomial) weight set, and against
+            its library call (the one-hot products as one torch.matmul, TF32
+            off); inter_counts bit-exact against its plain version on the
+            sketches of the first 1000 enriched LTRs' whole elements, all
+            pairs, with mash_distances' matrices equal on card and CPU; both
+            at edge shapes (n = 1, 63, 65; L = 1 and odd; sketches shorter
+            than 256; an empty sketch). Prints kernel ms (one wrapper call,
+            CUDA events, median after a warm-up), device ms (the bare
+            kernel launched back to back behind a spin of the card, between
+            CUDA events; and by torch.profiler where it records the
+            launches), plain and library ms, and the bound.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object describing each kernel, and the result object.
@@ -109,7 +137,9 @@ CORE_FILES = [".kmer.mat", ".chrom-subgenome.tsv", ".sig.kmer-subgenome.tsv",
 LTR_OUT_FILES = [".ltr.bin.count", ".ltr.enrich", ".ltr.insert.data", ".ltr.insert.summary"]
 LTR_TMP_FILES = ["LTR.scn", "LTR.inner.fa.cls.tsv", "LTR.filtered.LTR.fa"]
 LTR_STEPS = ["ltr_detect", "ltr_classify_pass1", "ltr_classify_pass2", "ltr_map",
-             "ltr_enrich", "ltr_age"]
+             "ltr_enrich", "ltr_age", "ltr_tree"]
+TREE_SUFFIXES = (".aln", ".trimal", ".tree.nwk", ".tree.map")
+TREE_LEAVES = 1000  # -subsample's default: the most leaves a tree has
 # stack -> (profiles, nodes, seed or None for the wheat database, [(rows,
 # length)]): the classifier's batches are 1024 rows; the wheat stack at 4096
 # rows has four times the warps on the same code
@@ -200,23 +230,86 @@ def time_ms_batched(fn, reps: int = 3, target_ms: float = 5.0) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, x, kernel: str, calls: int = 20) -> float:
+def device_ms(fn, x, kernel: str, calls: int = 20, required: bool = True) -> float | None:
     """Mean device milliseconds of one launch of the kernels whose name
-    holds ``kernel``, over ``calls`` calls of ``fn(x)`` under torch.profiler."""
+    holds ``kernel``, over ``calls`` calls of ``fn(x)`` under torch.profiler:
+    a warm-up step of ``calls`` calls, then the recorded step (a profiler
+    run's first launches can go unrecorded). Raises if the recorded step
+    saw more than ``calls`` launches of the kernel, or none and
+    ``required``; None when it saw none (late in a long process the
+    profiler has recorded no launch of a kernel at all)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(x)
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _step in range(2):
+            for _ in range(calls):
+                fn(x)
+            torch.cuda.synchronize()
+            prof.step()
     events = [e for e in prof.key_averages() if kernel in e.key and e.device_time_total > 0]
     launches = sum(e.count for e in events)
-    if launches != calls:
-        raise RuntimeError(f"the profiler saw {launches} launches of {kernel}, not {calls}")
+    if launches == 0 and not required:
+        log(f"the profiler recorded no launch of {kernel}")
+        return None
+    if not 1 <= launches <= calls:
+        raise RuntimeError(f"the profiler saw {launches} launches of {kernel} in {calls} calls")
     return sum(e.device_time_total for e in events) / launches / 1e3
+
+
+def queued_ms(launch, calls: int = 20, reps: int = 3) -> float:
+    """Device milliseconds of one bare kernel launch (``launch()`` calls a
+    kernel's C entry and waits on nothing): ``calls`` launches queued
+    behind a spin of the card, between two CUDA events, so the card runs
+    them back to back and the span holds the kernels and the gaps between
+    them, not the host's launch time; the median of ``reps``. Raises if the
+    host took longer to queue them than the spin lasted."""
+    import torch
+
+    spin = 10_000_000  # clock cycles, ~5 ms
+    launch()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(spin)
+    b.record()
+    torch.cuda.synchronize()
+    spin_ms = a.elapsed_time(b)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(calls):
+            launch()
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms > 0.8 * spin_ms:
+            raise RuntimeError(f"queuing {calls} launches took {host_ms} ms, the spin {spin_ms}")
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def bare_launch(entry: str, *args):
+    """A call of the tree kernels' C entry ``entry`` on the current stream
+    (tensors as pointers), raising on a launch error: what the wrapper
+    launches, without its checks and allocations."""
+    import torch
+
+    from subphaser_torch.ltr import msa
+
+    lib = msa.tree_counts_lib()
+    fn = getattr(lib, entry)
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(*cargs, stream) != 0:
+            raise RuntimeError(f"{entry} launch failed")
+    return launch
 
 
 def phase_build() -> None:
@@ -537,15 +630,40 @@ def gen_genome(out: str, n_sets: int, chrom_mb: float) -> tuple[str, str, str]:
     return fa, cfg, hmm
 
 
-def run_cli(fa: str, cfg: str, out: str, *extra: str, hmm_db: str | None = None):
-    """The port's CLI; the LTR step runs (without its trees) when ``hmm_db``
-    is given, else -disable_ltr."""
+def run_cli(fa: str, cfg: str, out: str, *extra: str, ltr: list[str] | None = None):
+    """The port's CLI; the whole LTR step runs with the options ``ltr``
+    (e.g. ["-hmm_db", path], or [] for none), and -disable_ltr when None."""
     from subphaser_torch import cli
 
-    ltr = ["-hmm_db", hmm_db, "-disable_ltrtree"] if hmm_db else ["-disable_ltr"]
+    ltr = ["-disable_ltr"] if ltr is None else ltr
     return cli.main(["-i", fa, "-c", cfg, "-o", os.path.join(out, "out"),
                      "-tmpdir", os.path.join(out, "tmp"), *ltr,
                      "-disable_circos", "-disable_blocks", *extra])
+
+
+def tree_files(pipe) -> dict[str, list[str]]:
+    """{group: the tree-file suffixes it wrote} in a run's output."""
+    prefix = os.path.basename(pipe.para_prefix) + "."
+    groups: dict[str, list[str]] = {}
+    for name in sorted(os.listdir(os.path.dirname(pipe.para_prefix))):
+        for suffix in TREE_SUFFIXES:
+            if name.startswith(prefix) and name.endswith(suffix):
+                groups.setdefault(name[len(prefix):-len(suffix)], []).append(suffix)
+    return groups
+
+
+def reset_tree_launches() -> None:
+    from subphaser_torch.ltr import msa, tree
+
+    msa.launches["match_counts"] = 0
+    tree.launches["inter_counts"] = 0
+
+
+def tree_launches() -> dict[str, int]:
+    from subphaser_torch.ltr import msa, tree
+
+    return {"match_counts": msa.launches["match_counts"],
+            "inter_counts": tree.launches["inter_counts"]}
 
 
 def read_assignments(pipe) -> dict[str, tuple[str, int]]:
@@ -575,40 +693,71 @@ def same_bytes(a: str, b: str) -> bool:
 
 
 def phase_parity() -> dict:
-    """Returns the LTR step's seconds on the card and on the CPU."""
+    """Returns the LTR step's seconds on the card and on the CPU, and the
+    tree kernels' launches of the card's runs, by route."""
     fa, cfg, hmm = gen_genome(os.path.join(WORK, "small"), 2, 2)
-    ltr_s = {}
-    for k in (15, 17):
+    small = os.path.join(WORK, "small")
+    res = {"ltr_step_s": {}, "trees": {}, "launches": {}}
+    # (run, k, LTR options): the domain route (-hmm_db), the sketch route
+    # (no database: every LTR kept, no peptides) from k15's core checkpoints
+    for run, k, ltr in (("k15", 15, ["-hmm_db", hmm]), ("k15_sketch", 15, []),
+                        ("k17", 17, None)):
         args = ("-k", str(k), "-min_freq", "4", "-lower_count", "2",
                 "-tile_bases", str(1 << 20), "-replicates", "100")
-        db = hmm if k == 15 else None
         runs = {}
         for dev in ("cuda", "cpu"):
-            out = os.path.join(WORK, "small", f"{dev}{k}")
-            runs[dev] = run_cli(fa, cfg, out, *args, "-device", dev, hmm_db=db)
-            if db:
-                ltr_s[dev] = {s: round(v, 3) for s, v in runs[dev].step_seconds.items()
-                              if s.startswith("ltr_")}
+            out = os.path.join(small, f"{dev}_{run}")
+            if run == "k15_sketch":
+                shutil.copytree(os.path.join(small, f"{dev}_k15", "tmp"), os.path.join(out, "tmp"),
+                                ignore=shutil.ignore_patterns("LTR"))
+            reset_tree_launches()
+            runs[dev] = run_cli(fa, cfg, out, *args, "-device", dev, ltr=ltr)
+            if ltr is not None:
+                res["ltr_step_s"].setdefault(run, {})[dev] = {
+                    s: round(v, 3) for s, v in runs[dev].step_seconds.items()
+                    if s.startswith("ltr_")}
+            if dev == "cuda" and ltr is not None:
+                res["launches"][run] = tree_launches()
         gpu, cpu = runs["cuda"], runs["cpu"]
         suffixes = [s for s in CORE_FILES if s != ".chrom-subgenome.tsv"]
-        for suffix in suffixes + (LTR_OUT_FILES if db else []):
+        for suffix in suffixes + (LTR_OUT_FILES if ltr is not None else []):
             if not same_bytes(gpu.para_prefix + suffix, cpu.para_prefix + suffix):
-                raise RuntimeError(f"k={k}: {suffix} differs between cuda and cpu runs")
-        for name in LTR_TMP_FILES if db else []:
-            paths = [os.path.join(WORK, "small", f"{dev}{k}", "tmp", "LTR", name)
+                raise RuntimeError(f"{run}: {suffix} differs between cuda and cpu runs")
+        for name in LTR_TMP_FILES if ltr else []:
+            paths = [os.path.join(small, f"{dev}_{run}", "tmp", "LTR", name)
                      for dev in ("cuda", "cpu")]
             if not same_bytes(*paths):
-                raise RuntimeError(f"k={k}: {name} differs between cuda and cpu runs")
+                raise RuntimeError(f"{run}: {name} differs between cuda and cpu runs")
         a_gpu, a_cpu = read_assignments(gpu), read_assignments(cpu)
         if {c: v[0] for c, v in a_gpu.items()} != {c: v[0] for c, v in a_cpu.items()}:
-            raise RuntimeError(f"k={k}: assignments differ: cuda {a_gpu} cpu {a_cpu}")
+            raise RuntimeError(f"{run}: assignments differ: cuda {a_gpu} cpu {a_cpu}")
         check_phased(a_gpu)
-        if db and not (gpu.ltr_pipeline.n_candidates and gpu.enriched_ltrs):
-            raise RuntimeError("12 Mb parity run: no LTR candidates or none enriched")
-    log(f"parity ltr_step_s {json.dumps(ltr_s)}")
-    log("phase parity ok: 12 Mb genome at k = 15 (LTR step on) and k = 17, cuda == cpu "
-        "on the five count/map/enrich files, the seven LTR files and the assignments")
-    return ltr_s
+        if ltr is None:
+            continue
+        if not (gpu.ltr_pipeline.n_candidates and gpu.enriched_ltrs):
+            raise RuntimeError(f"12 Mb {run}: no LTR candidates or none enriched")
+        groups = tree_files(gpu)
+        if groups != tree_files(cpu):
+            raise RuntimeError(f"{run}: tree files differ: cuda {groups} cpu {tree_files(cpu)}")
+        for group, written in groups.items():
+            for suffix in written:
+                if not same_bytes(f"{gpu.para_prefix}.{group}{suffix}",
+                                  f"{cpu.para_prefix}.{group}{suffix}"):
+                    raise RuntimeError(f"{run}: {group}{suffix} differs between cuda and cpu")
+        route = "alignment" if ltr else "sketch"
+        trees = [g for g, w in groups.items() if ".tree.nwk" in w
+                 and (".aln" in w) == (route == "alignment")]
+        kernel = "match_counts" if route == "alignment" else "inter_counts"
+        if not trees or res["launches"][run][kernel] <= 0:
+            raise RuntimeError(f"{run}: no tree by the {route} route, or no {kernel} "
+                               f"launch: {groups} {res['launches'][run]}")
+        res["trees"][run] = {g: len(open(f"{gpu.para_prefix}.{g}.tree.map").readlines())
+                             for g in trees}
+    log(f"parity {json.dumps(res)}")
+    log("phase parity ok: 12 Mb genome at k = 15 (LTR step with trees, the alignment and the "
+        "sketch route) and k = 17, cuda == cpu on the five count/map/enrich files, the seven "
+        "LTR files, every tree file and the assignments")
+    return res
 
 
 def synthetic_profiles(n: int, m: int, seed: int):
@@ -757,9 +906,10 @@ def phase_ltr() -> dict:
 
     for name in buckets:
         setattr(tc, name, timed(name))
+    reset_tree_launches()
     t0 = time.perf_counter()
     try:
-        pipe = run_cli(fa, cfg, work, "-k", "15", "-min_freq", "200", hmm_db=hmm)
+        pipe = run_cli(fa, cfg, work, "-k", "15", "-min_freq", "200", ltr=["-hmm_db", hmm])
         torch.cuda.synchronize()
     finally:
         for name, fn in originals.items():
@@ -783,6 +933,9 @@ def phase_ltr() -> dict:
         raise RuntimeError(f"the ltr path launched no {idle}")
     if any(r["warp"] != launches[name] for name, r in by_route.items()):
         raise RuntimeError(f"the ltr path's scans did not all take the warp route: {by_route}")
+    launches.update(tree_launches())  # inter_counts: the sketch route, none here
+    trees = check_trees(pipe, launches)
+    LTR_RUN["pipe"] = pipe  # phase trees works on this run's data
     result = {
         "genome_mbp": pipe.genome.total_bases() / 1e6,
         "wall_s": round(wall, 3),
@@ -799,12 +952,305 @@ def phase_ltr() -> dict:
         "scans_span_s": {name: sum(r["span_ms"] for r in per.values()) / 1e3
                            for name, per in by_bucket.items()},
         "pass1_jobs": dict(tc.PASS1_STATS),
+        "trees": trees,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     log("ltr " + json.dumps(result))
     log(f"phase ltr ok: {result['candidates']} candidates, {result['ltr_order']} LTR order, "
-        f"{result['enriched_ltrs']} SG-enriched, launches {json.dumps(launches)}")
+        f"{result['enriched_ltrs']} SG-enriched, trees {json.dumps(trees['groups'])} in "
+        f"{result['step_s']['ltr_tree']} s, launches {json.dumps(launches)}")
     return result
+
+
+LTR_RUN: dict = {}
+
+
+def read_alignment(path: str):
+    """An aligned FASTA (.aln / .trimal) -> (n, L) uint8 residue indices
+    (the port's alphabet, '-' = GAP)."""
+    import numpy as np
+
+    from subphaser_torch.ltr import msa
+
+    code = np.full(256, 255, np.uint8)
+    for i, a in enumerate(msa.AA + "-"):
+        code[ord(a)] = i
+    with open(path) as f:
+        rows = [line.strip() for line in f if not line.startswith(">")]
+    aln = code[np.frombuffer("".join(rows).encode(), np.uint8)].reshape(len(rows), -1)
+    if (aln == 255).any():
+        raise RuntimeError(f"{path}: letters outside the alignment alphabet")
+    return aln
+
+
+def check_trees(pipe, launches: dict) -> dict:
+    """Every superfamily group of >= 4 enriched LTRs has a .tree.nwk and a
+    .tree.map; match_counts launched tree_boot + 1 times for each group of
+    the alignment route. Returns per group its leaves, route, and aligned
+    and trimmed columns."""
+    from collections import Counter
+
+    sizes = Counter(ltr.superfamily or "LTR" for ltr in pipe.enriched_ltrs
+                    if not (pipe.exclude_exchanges and ltr.exchange == "yes"))
+    written = tree_files(pipe)
+    missing = [g for g, c in sizes.items() if c >= 4
+               and not {".tree.nwk", ".tree.map"} <= set(written.get(g, []))]
+    if missing:
+        raise RuntimeError(f"no tree for the groups {missing} ({dict(sizes)}, {written})")
+    groups = {}
+    for group, suffixes in written.items():
+        with open(f"{pipe.para_prefix}.{group}.tree.map") as f:
+            row = {"members": sizes[group], "leaves": sum(1 for _ in f)}
+        if ".aln" in suffixes:
+            aln = read_alignment(f"{pipe.para_prefix}.{group}.aln")
+            trimmed = read_alignment(f"{pipe.para_prefix}.{group}.trimal")
+            row.update(route="alignment", n=aln.shape[0], aligned_L=aln.shape[1],
+                       trimmed_L=trimmed.shape[1])
+        else:
+            row["route"] = "sketch"
+        groups[group] = row
+    n_aln = sum(r["route"] == "alignment" for r in groups.values())
+    if launches["match_counts"] != (pipe.tree_boot + 1) * n_aln:
+        raise RuntimeError(f"match_counts launched {launches['match_counts']} times for "
+                           f"{n_aln} alignment groups at tree_boot {pipe.tree_boot}")
+    if n_aln == 0:
+        raise RuntimeError(f"no tree took the alignment route: {groups}")
+    return {"groups": groups, "tree_boot": pipe.tree_boot}
+
+
+def one_hot_stack(aln, w):
+    """The JAX function's operands: (21, n, L) float32 one-hot rows (slots
+    0..19 the residues, 20 = not a gap) and the same times the weights."""
+    import torch
+
+    from subphaser_torch.ltr import msa
+
+    codes = torch.arange(21, device=aln.device, dtype=torch.uint8)[:, None, None]
+    oh = (aln[None] == codes).to(torch.float32)
+    oh[msa.GAP] = (aln != msa.GAP).to(torch.float32)
+    return oh, oh * w
+
+
+def random_alignment(n: int, length: int, seed: int):
+    """(n, L) uint8 residues and gaps (gap-rich rows, an all-gap row and
+    column)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 21, size=(n, length)).astype(np.uint8)
+    a[: n // 3, : length // 2] = 20
+    if n > 2:
+        a[n // 2] = 20
+    if length > 2:
+        a[:, length // 2] = 20
+    return a
+
+
+def tree_weight_sets(length: int, seed: int = 0) -> dict:
+    """Ones, and the first bootstrap replicate's multinomial column counts
+    (nj_with_support's draw)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"ones": np.ones(length, np.float32),
+            "multinomial": rng.multinomial(length, np.full(length, 1.0 / length))
+            .astype(np.float32)}
+
+
+def check_match_counts(aln_h, w_h, timed: bool) -> dict:
+    """match_counts on the card against its plain version and the library
+    call (equal, exact); with ``timed``, the times and the bound."""
+    import torch
+
+    from subphaser_torch.ltr import msa
+
+    n, length = aln_h.shape
+    a, w = torch.from_numpy(aln_h).cuda(), torch.from_numpy(w_h).cuda()
+    before = msa.launches["match_counts"]
+    (v, m), (pv, pm) = msa.match_counts(a, w), msa.match_counts_plain(a, w)
+    oh, ohw = one_hot_stack(a, w)
+    lib = torch.matmul(ohw, oh.transpose(1, 2))
+    torch.cuda.synchronize()
+    if msa.launches["match_counts"] != before + 1:
+        raise RuntimeError("match_counts took more or less than one launch")
+    if not (torch.equal(v, pv) and torch.equal(m, pm)):
+        raise RuntimeError(f"match_counts disagrees with its plain version at n={n} L={length}")
+    if not (torch.equal(lib[msa.GAP], v) and torch.equal(lib[: msa.GAP].sum(0), m)):
+        raise RuntimeError(f"the one-hot matmul disagrees with match_counts at n={n} L={length}")
+    row = {"n": n, "L": length,
+           "max_abs_err": max(float((v - pv).abs().max()), float((m - pm).abs().max()))}
+    if timed:
+        # two float32 adds (V, M) a pair and weighted column: the n(n + 1)/2
+        # unordered pairs over the columns of nonzero weight; bytes: the
+        # alignment, the weights and the two outputs, once
+        cols = int((w != 0).sum())
+        ops_ms = n * (n + 1) // 2 * cols * 2 / FP32_OPS_PER_S * 1e3
+        bytes_ms = (n * length + 4 * length + 8 * n * n) / HBM_BYTES_PER_S * 1e3
+        V, M = torch.empty_like(v), torch.empty_like(m)
+        row.update(
+            ms=time_ms(lambda: msa.match_counts(a, w)),
+            device_ms=queued_ms(bare_launch("tc_match_counts", a, w, n, length, V, M)),
+            profiler_ms=device_ms(lambda _x: msa.match_counts(a, w), None,
+                                  "match_counts_kernel", required=False),
+            plain_ms=time_ms(lambda: msa.match_counts_plain(a, w), 3),
+            library_ms=time_ms(lambda: torch.matmul(ohw, oh.transpose(1, 2))),
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            weighted_columns=cols)
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def check_inter_counts(pad_h, sizes, timed: bool) -> dict:
+    """inter_counts on the card against its plain version over every pair
+    of the rows of ``pad_h``, in mash_distances' chunks (exact); with
+    ``timed``, one chunk's times and bound."""
+    import numpy as np
+    import torch
+
+    from subphaser_torch.ltr import tree
+
+    n, s = pad_h.shape
+    pad = torch.from_numpy(pad_h).cuda()
+    ai, bi = (torch.from_numpy(x).cuda() for x in np.triu_indices(n, 1))
+    err = 0
+    for lo in range(0, ai.numel(), tree.PAIR_CHUNK):
+        a, b = ai[lo:lo + tree.PAIR_CHUNK], bi[lo:lo + tree.PAIR_CHUNK]
+        before = tree.launches["inter_counts"]
+        got, want = tree.inter_counts(pad, a, b), tree.inter_counts_plain(pad, a, b)
+        torch.cuda.synchronize()
+        if tree.launches["inter_counts"] != before + 1 or not torch.equal(got, want):
+            raise RuntimeError(f"inter_counts disagrees with its plain version at n={n} s={s}")
+        err = max(err, int((got.long() - want.long()).abs().max()))
+    row = {"n": n, "s": s, "pairs": int(ai.numel()), "max_abs_err": err}
+    if timed:
+        a, b = ai[:tree.PAIR_CHUNK], bi[:tree.PAIR_CHUNK]
+        # one call of the path's shape (a chunk of pairs): a merge of two
+        # sorted sketches needs a compare a value of either (their real
+        # sizes); bytes: the sketches, the pair lists and the counts, once
+        ops_ms = float((sizes[a.cpu().numpy()].astype(np.int64)
+                        + sizes[b.cpu().numpy()]).sum()) / card_int32_ops_per_s()[0] * 1e3
+        bytes_ms = (pad_h.nbytes + 20 * a.numel()) / HBM_BYTES_PER_S * 1e3
+        out = torch.empty(a.numel(), dtype=torch.int32, device="cuda")
+        row.update(
+            timed_pairs=int(a.numel()),
+            ms=time_ms(lambda: tree.inter_counts(pad, a, b)),
+            device_ms=queued_ms(bare_launch("tc_inter_counts", pad, s, a, b, a.numel(), out)),
+            profiler_ms=device_ms(lambda _x: tree.inter_counts(pad, a, b), None,
+                                  "inter_counts_kernel", required=False),
+            plain_ms=time_ms(lambda: tree.inter_counts_plain(pad, a, b), 3),
+            library_ms=None,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def tree_split(pipe, group: str, aln) -> dict:
+    """Where the alignment route's time goes, on phase ltr's tree of
+    ``group``: the bootstrap NJ (nj_with_support: 1 + tree_boot distance
+    matrices and NJ trees in a pool of 8 threads) rebuilt from its trimmed
+    alignment, which must give the tree file again; one NJ tree and one
+    bipartition set of it alone; the rest of phase ltr's ltr_tree seconds
+    is the progressive MSA, trimming, rerooting and the files."""
+    from subphaser_torch.ltr import msa, tree
+    from subphaser_torch.ltr.native import nj_tree
+
+    with open(f"{pipe.para_prefix}.{group}.tree.map") as f:
+        names = [line.split("\t", 1)[0] for line in f]
+    t0 = time.perf_counter()
+    newick = msa.nj_with_support(aln, names, n_boot=pipe.tree_boot, device="cuda")
+    boot_s = time.perf_counter() - t0
+    with open(f"{pipe.para_prefix}.{group}.tree.nwk") as f:
+        if tree.reroot_midpoint(newick) + "\n" != f.read():
+            raise RuntimeError(f"the {group} tree rebuilt from its .trimal differs")
+    dist = msa.kimura_distances(aln, device="cuda")
+    t0 = time.perf_counter()
+    main = nj_tree(dist, names)
+    nj_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    msa._bipartitions(main)
+    bip_s = time.perf_counter() - t0
+    return {"ltr_tree_s": round(pipe.step_seconds["ltr_tree"], 3),
+            "nj_with_support_s": round(boot_s, 3), "one_nj_tree_s": round(nj_s, 3),
+            "one_bipartition_set_s": round(bip_s, 3),
+            "msa_trim_reroot_files_s": round(pipe.step_seconds["ltr_tree"] - boot_s, 3)}
+
+
+def phase_trees() -> dict:
+    """Phase ltr's data: its enriched LTRs through the sketch route at real
+    size, then both tree kernels at its real shapes and at edge shapes."""
+    import numpy as np
+    import torch
+
+    from subphaser_torch.ltr import classify as tc
+    from subphaser_torch.ltr import tree
+
+    pipe = LTR_RUN.pop("pipe", None)
+    if pipe is None:
+        raise RuntimeError("phase trees needs phase ltr's run")
+    d_seqs = pipe.ltr_pipeline.d_seqs
+    res = {}
+    # the sketch route at real size, through build_ltr_trees
+    out = os.path.join(WORK, "trees")
+    os.makedirs(out, exist_ok=True)
+    reset_tree_launches()
+    t0 = time.perf_counter()
+    built = tree.build_ltr_trees(pipe.enriched_ltrs, d_seqs, os.path.join(out, "sketch"),
+                                 subsample=pipe.subsample, figfmt=pipe.figfmt, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = tree_launches()
+    leaves = {g: sum(1 for _ in open(mapfile)) for g, (_nwk, mapfile) in built.items()}
+    chunks = sum(-(-(k * (k - 1) // 2) // tree.PAIR_CHUNK) for k in leaves.values())
+    if not built or launches != {"match_counts": 0, "inter_counts": chunks}:
+        raise RuntimeError(f"the sketch route built {leaves} with launches {launches}, "
+                           f"not {chunks} inter_counts launches")
+    res["sketch_route"] = {"seconds": round(seconds, 3), "leaves": leaves, "launches": launches}
+    log(f"trees sketch route {json.dumps(res['sketch_route'])}")
+
+    # match_counts on the largest group's trimmed alignment
+    groups = {g: read_alignment(f"{pipe.para_prefix}.{g}.trimal")
+              for g, suffixes in tree_files(pipe).items() if ".trimal" in suffixes}
+    group = max(groups, key=lambda g: groups[g].shape[0])
+    aln = groups[group]
+    rows = {w_name: check_match_counts(aln, w, True)
+            for w_name, w in tree_weight_sets(aln.shape[1]).items()}
+    edges = {}
+    for n, length in ((1, 1), (1, 77), (63, 1), (63, 77), (65, 77), (65, 64)):
+        a = random_alignment(n, length, n * 100 + length)
+        for w_name, w in tree_weight_sets(length, n).items():
+            edges[f"n={n} L={length} {w_name}"] = check_match_counts(a, w, False)["max_abs_err"]
+    res["match_counts"] = dict(rows["ones"], group=group, by_weights=rows, edges=edges,
+                               max_abs_err=max([r["max_abs_err"] for r in rows.values()]
+                                               + list(edges.values())))
+    log(f"trees match_counts {json.dumps(res['match_counts'])}")
+    res["tree_split"] = tree_split(pipe, group, aln)
+    log(f"trees split of the ltr path's {group} tree {json.dumps(res['tree_split'])}")
+
+    # inter_counts on the sketches of the first 1000 enriched LTRs
+    ltrs = pipe.enriched_ltrs[:TREE_LEAVES]
+    sketches = [tc._sketch(ltr.get_full_seq(d_seqs[ltr.seq_id])) for ltr in ltrs]
+    pad, sizes = tree.pad_sketches(sketches)
+    row = check_inter_counts(pad, sizes, True)
+    if not np.array_equal(tree.mash_distances(sketches, device="cuda"),
+                          tree.mash_distances(sketches, device="cpu")):
+        raise RuntimeError("mash_distances differ between cuda and cpu")
+    edges = {}
+    short = [x[:37] for x in sketches[:65]]
+    short[3] = short[3][:0]  # an empty sketch
+    for n in (2, 63, 65):
+        p_h, sz = tree.pad_sketches(short[:n])
+        edges[f"n={n} s={p_h.shape[1]}"] = check_inter_counts(p_h, sz, False)["max_abs_err"]
+    res["inter_counts"] = dict(row, edges=edges,
+                               max_abs_err=max([row["max_abs_err"]] + list(edges.values())))
+    log(f"trees inter_counts {json.dumps(res['inter_counts'])}")
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"phase trees ok: the sketch route at {leaves} leaves; match_counts bit-exact at "
+        f"n={aln.shape[0]} L={aln.shape[1]} ({group}) and 6 edge shapes; inter_counts "
+        f"bit-exact over {row['pairs']} pairs and 3 edge shapes; mash_distances equal")
+    return res
 
 
 def main_genome() -> tuple[str, str, str]:
@@ -868,7 +1314,38 @@ def phase_main(k: int = 15) -> dict:
     return result
 
 
-PHASES = ["build", "sort", "primitives", "hmm", "parity", "main", "main_k17", "ltr"]
+def tree_kernel_entries(res: dict) -> list[dict]:
+    """The kernels-line entries of the LTR trees' counts (hand-written
+    kernels of XLA-lowered functions), from phases parity, ltr and trees:
+    their numbers are phase trees' at real shapes; match_counts launches on
+    the ltr path (the alignment route), inter_counts on the sketch route at
+    real size (phase trees), as the ltr path's groups all carry peptides."""
+    tr = res["trees"]
+    entries = []
+    for name, pattern, needle in (("match_counts", "*/ltr/msa.py", "def _match_counts"),
+                                  ("inter_counts", "*/ltr/tree.py", "    def inter_counts")):
+        row = tr[name]
+        by_path = {"ltr": res["ltr"]["launches"][name],
+                   "ltr_sketch_route": tr["sketch_route"]["launches"][name],
+                   **{f"parity_{run}": counts[name]
+                      for run, counts in res["parity"]["launches"].items()}}
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "subphaser_torch/csrc/tree_counts.cu",
+            "replaces": tpu_kernel_site(pattern, needle),
+            "launches": by_path["ltr"] or by_path["ltr_sketch_route"],
+            "launches_by_path": by_path,
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "device_ms", "profiler_ms",
+                                         "share_of_bound")},
+            "shape": {key: row[key] for key in ("n", "L", "s", "pairs", "timed_pairs", "group")
+                      if key in row},
+        })
+    return entries
+
+
+PHASES = ["build", "sort", "primitives", "hmm", "parity", "main", "main_k17", "ltr", "trees"]
 
 
 def main() -> int:
@@ -995,6 +1472,7 @@ def main() -> int:
             "library_ms": None,
             "by_shape": by_shape,
         })
+    kernels += tree_kernel_entries(res)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

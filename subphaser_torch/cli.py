@@ -3,9 +3,9 @@
 
 The flags are the JAX package's, plus ``-device {cuda,cpu}`` (default cuda).
 Steps this port does not do yet are refused by the Pipeline with
-NotImplementedError: the LTR step runs with ``-disable_ltrtree`` (the trees
-are not ported yet) and the run needs ``-disable_circos`` (circos and
-blocks are not ported yet); ``-just_core`` stops after core phasing.
+NotImplementedError: the run needs ``-disable_circos`` (circos and blocks
+are not ported yet); ``-just_core`` stops after core phasing. The LTR step
+runs whole, its trees included.
 """
 
 from __future__ import annotations

@@ -94,3 +94,17 @@ def iter_fasta_raw(path: str) -> Iterator[tuple[str, str, np.ndarray]]:
         desc = parts[1] if len(parts) > 1 else ""
         yield name, desc, body
         pos = -1 if nxt < 0 else nxt + 1
+
+
+def write_fasta(path: str, records, width: int = 60) -> None:
+    """Write records ``(id, seq)`` where seq is str / bytes / uint8 array."""
+    with xopen(path, "wt") as out:
+        for rid, seq in records:
+            if isinstance(seq, np.ndarray):
+                seq = seq.tobytes().decode()
+            elif isinstance(seq, (bytes, bytearray)):
+                seq = bytes(seq).decode()
+            out.write(f">{rid}\n")
+            for i in range(0, len(seq), width):
+                out.write(seq[i : i + width])
+                out.write("\n")

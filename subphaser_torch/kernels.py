@@ -9,6 +9,10 @@ library built on another host is never loaded. Builds happen at first use,
 into ``_build/`` inside the package (git-ignored); a library's file name
 carries a digest of its source and flags, so an edited source is rebuilt
 and never mixed up with a stale one. Nothing here runs at import time.
+
+A failure of this layer (a build, a load, a launch, or a CUDA fault found
+by :func:`synchronize`) raises :class:`KernelError`, so a caller that
+tolerates host failures (the LTR tree step) can let it through.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -27,6 +32,7 @@ SOURCES = {
     "sort_primitives": os.path.join(PKG_DIR, "csrc", "sort_primitives.cu"),
     "radix_sort": os.path.join(PKG_DIR, "csrc", "radix_sort.cu"),
     "hmm_scan": os.path.join(PKG_DIR, "csrc", "hmm_scan.cu"),
+    "tree_counts": os.path.join(PKG_DIR, "csrc", "tree_counts.cu"),
     "ltr_native": os.path.join(PKG_DIR, "csrc", "ltr_native.cpp"),
 }
 HOST_SOURCES = {"ltr_native"}  # g++, not nvcc
@@ -41,6 +47,23 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 GXX_EXTRA = (["-march=native", "-fopenmp"], ["-fopenmp"], [])
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel or native library failed to build, load or launch, or a
+    CUDA fault surfaced after a launch."""
+
+
+def synchronize(device) -> None:
+    """Waits for ``device`` (a CUDA device); a CUDA fault of an earlier
+    launch is raised as KernelError."""
+    import torch
+
+    try:
+        torch.cuda.synchronize(device)
+    except RuntimeError as e:
+        raise KernelError(f"CUDA error after a kernel launch: {e}") from e
 
 
 def _host_isa_tag() -> str:
@@ -67,7 +90,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
 def library_path(name: str) -> str:
@@ -91,7 +114,7 @@ def _command(name: str, tmp: str, verbose: bool, extra=()) -> list[str]:
 def build(names=None, force: bool = False, verbose: bool = False) -> dict[str, float]:
     """Compile the named libraries (all by default), one compiler each, all
     started together. Returns {name: seconds} for the ones compiled;
-    raises RuntimeError with the compiler's output when a build fails."""
+    raises KernelError with the compiler's output when a build fails."""
     names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
@@ -124,17 +147,21 @@ def build(names=None, force: bool = False, verbose: bool = False) -> dict[str, f
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("kernel build failed:\n" + "\n".join(failed))
     return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not os.path.exists(path):
-            build([name])
-        lib = ctypes.CDLL(path)
-        _loaded[name] = lib
+    """The library ``name``, built first if needed (thread-safe)."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not os.path.exists(path):
+                build([name])
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
+            _loaded[name] = lib
     return lib

@@ -1,8 +1,8 @@
 """ctypes bindings for the LTR step's native host library
 (csrc/ltr_native.cpp): the detectors' refinement (X-drop, banded identity,
-TSD), finder chaining, and base unpacking. The library's other entry points
-(alignment, MSA, trees, blocks) are bound when a step that needs them is
-ported.
+TSD), finder chaining, base unpacking, and the LTR trees' profile-profile
+alignment and neighbor joining. The library's other entry points (blocks)
+are bound when a step that needs them is ported.
 
 The library is compiled with g++ at first use into the package's git-ignored
 ``_build/`` (see kernels.py, which builds it with the CUDA kernels), never
@@ -108,6 +108,18 @@ def load():
         lib.sp_unpack_codes.argtypes = [
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
+        ]
+        lib.sp_nj_tree.restype = ctypes.c_int
+        lib.sp_nj_tree.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int32, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_int64,
+        ]
+        lib.sp_profile_align.restype = ctypes.c_int
+        lib.sp_profile_align.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int32,
+            ctypes.c_float, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
         ]
         _lib = lib
         return lib
@@ -225,3 +237,46 @@ def chain_anchors(qpos: np.ndarray, tpos: np.ndarray, alen: np.ndarray,
         res[i] = (out[i].q_start, out[i].q_end, out[i].t_start, out[i].t_end,
                   out[i].n_anchors, out[i].strand, out[i].score)
     return res
+
+
+def profile_align(p1: np.ndarray, sp2: np.ndarray,
+                  gap_open: float = 11.0, gap_ext: float = 1.0) -> np.ndarray:
+    """Global affine-gap alignment of two peptide profiles (progressive-MSA
+    merge; replaces the reference's mafft call, LTR.py:144-299).
+
+    ``p1``: (L1, 21) float32 column frequencies. ``sp2``: (L2, 21) float32 =
+    profile-2 frequencies premultiplied by the substitution matrix
+    (``f2 @ S.T``). Returns (n, 2) int32 (op, len) runs: 0 = aligned column
+    pair, 1 = column from profile 1 only, 2 = from profile 2 only."""
+    lib = load()
+    p1 = np.ascontiguousarray(p1, dtype=np.float32)
+    sp2 = np.ascontiguousarray(sp2, dtype=np.float32)
+    l1, l2 = p1.shape[0], sp2.shape[0]
+    cap = 2 * (l1 + l2) + 16
+    out = np.zeros(2 * cap, dtype=np.int32)
+    fptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))  # noqa: E731
+    n = lib.sp_profile_align(
+        fptr(p1), l1, fptr(sp2), l2,
+        ctypes.c_float(gap_open), ctypes.c_float(gap_ext),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap,
+    )
+    if n < 0:
+        raise RuntimeError("sp_profile_align: ops buffer too small")
+    return out[: 2 * n].reshape(n, 2)
+
+
+def nj_tree(dist: np.ndarray, names: list[str]) -> str:
+    """Neighbor-joining tree of a (n, n) float64 distance matrix -> newick
+    with ``names`` as leaf labels."""
+    lib = load()
+    n = len(names)
+    d = np.ascontiguousarray(dist, dtype=np.float64)
+    blob = b"".join(name.encode() + b"\0" for name in names)
+    cap = 1 << 22
+    out = ctypes.create_string_buffer(cap)
+    r = lib.sp_nj_tree(
+        d.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n, blob, out, cap
+    )
+    if r < 0:
+        raise RuntimeError(f"sp_nj_tree failed: {r}")
+    return out.value.decode()

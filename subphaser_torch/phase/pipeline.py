@@ -3,13 +3,13 @@ custom features -> LTR, with checkpoint/resume.
 
 Mirrors the reference Pipeline (reference __main__.py:250-729) step for step
 for core phasing (k 1..31, one device), custom features and the LTR step
-(detection, classification, SG enrichment, insertion ages). The checkpoint
-files are the JAX package's, so a run resumes from a tmpdir either package
-wrote.
+(detection, classification, SG enrichment, insertion ages, trees). The
+checkpoint files are the JAX package's, so a run resumes from a tmpdir
+either package wrote.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item when asked for: the LTR trees (A9b; pass -disable_ltrtree), circos
-and homoeologous blocks (A11), several devices (A12), device traces (A14).
+item when asked for: circos and homoeologous blocks (A11), several devices
+(A12), device traces (A14).
 The core figures (histogram, heatmap, PCA) are ROADMAP A6b; this module
 logs that they are not written.
 """
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from subphaser_torch import config as cfgmod
+from subphaser_torch import kernels
 from subphaser_torch.device import resolve_device
 from subphaser_torch.io.fasta import xopen
 from subphaser_torch.io.genome import DEFAULT_TILE_BASES, PackedGenome
@@ -62,7 +63,8 @@ class Pipeline:
             test_method="ttest_ind", figfmt="pdf", just_core=False,
             disable_ltr=False, ltr_detectors=["ltr_harvest"], all_ltr=False,
             hmm_db=None, intact_ltr=False, exclude_exchanges=False,
-            non_specific=False, mu=13e-9, disable_ltrtree=False,
+            non_specific=False, mu=13e-9, disable_ltrtree=False, subsample=1000,
+            ltr_domains=["INT", "RT", "RH"],
             colors=None, ltr_harvest_options=None, ltr_finder_options=None,
             tesorter_options=None,
             disable_circos=False, window_size=1000000,
@@ -113,8 +115,8 @@ class Pipeline:
         if not self.nsg or self.nsg < 2:
             self.nsg = _nsg
         self.sg_color = SGColors(self.colors)
-        # the options of steps not ported yet are parsed all the same: the
-        # LTR trees (A9b), blocks (A10), core figures (A6b) read them
+        # the options of steps not ported yet are parsed all the same:
+        # blocks (A10) and core figures (A6b) read them
         self._parse_plot_options()
         self._parse_aligner_options()
         self._parse_tool_options()
@@ -134,12 +136,8 @@ class Pipeline:
             todo.append("several devices (ROADMAP A12)")
         if self.trace:
             todo.append("-trace device traces (ROADMAP A14)")
-        if not self.just_core:
-            if not self.disable_ltr and not self.disable_ltrtree:
-                todo.append("the LTR trees (ltr/tree, ltr/msa); pass "
-                            "-disable_ltrtree or -disable_ltr (ROADMAP A9b)")
-            if not self.disable_circos:
-                todo.append("circos and blocks; pass -disable_circos (ROADMAP A11)")
+        if not self.just_core and not self.disable_circos:
+            todo.append("circos and blocks; pass -disable_circos (ROADMAP A11)")
         if todo:
             raise NotImplementedError(
                 "not ported to PyTorch yet: " + "; ".join(todo))
@@ -653,10 +651,10 @@ class Pipeline:
         self._map_features(records, sig, "custom", "features")
 
     def _step_ltr(self, sig: SigKmers):
-        """LTR detection, classification, SG enrichment, insertion ages.
+        """LTR detection, classification, SG enrichment, insertion ages,
+        trees.
 
-        Mirrors reference Pipeline.step_ltr (__main__.py:549-648); the
-        trees are ROADMAP A9b (refused up front unless -disable_ltrtree).
+        Mirrors reference Pipeline.step_ltr (__main__.py:549-648).
         """
         from subphaser_torch.ltr.age import plot_insert_age
         from subphaser_torch.ltr.pipeline import LTRPipeline
@@ -713,6 +711,34 @@ class Pipeline:
                 "are skipped."
             )
         self._timed("ltr_age", t0)
+
+        if not self.disable_ltrtree and self.enriched_ltrs:
+            self._step_ltr_tree(getattr(lpipe, "d_class", None), d_seqs, d_colors)
+
+    def _step_ltr_tree(self, d_class, d_seqs, d_colors):
+        """The SG-enriched LTRs' trees (JAX pipeline.py:951-965). A host
+        failure is logged and the run goes on, as in the JAX package; a
+        kernel that did not build, launch or run raises."""
+        from subphaser_torch.ltr.tree import build_ltr_trees
+
+        t0 = time.perf_counter()
+        try:
+            build_ltr_trees(
+                self.enriched_ltrs, d_seqs, self.para_prefix,
+                domains=self.ltr_domains, subsample=self.subsample,
+                exclude_exchanges=self.exclude_exchanges,
+                d_colors=d_colors, figfmt=self.figfmt, d_class=d_class,
+                trim_gt=self.trim_gt, n_boot=self.tree_boot,
+                use_branch_lengths=self.tree_branch_lengths,
+                device=self.device,
+            )
+        except kernels.KernelError:
+            raise
+        except Exception as e:
+            if self.device.type == "cuda":
+                kernels.synchronize(self.device)  # a CUDA fault is not a host failure
+            logger.warning("LTR tree step failed: %s", e)
+        self._timed("ltr_tree", t0)
 
     def _final(self):
         if self.cleanup:

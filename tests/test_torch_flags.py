@@ -3,9 +3,10 @@ the JAX package's, on the inputs of tests/test_flags.py's
 ``test_external_aligner_errors`` and ``test_compat_flags_warn``.
 
 Both packages' ``Pipeline`` run on the same synthetic genome. The port
-still refuses the LTR trees and circos (ROADMAP A9b, A11), so the
-compat-flags case gives both packages ``disable_ltrtree`` and
-``disable_circos``; neither changes what the options parse into.
+still refuses circos (ROADMAP A11), so the compat-flags case gives both
+packages ``disable_circos`` (and ``disable_ltrtree``); neither changes what
+the options parse into. Also: the LTR trees' defaults (``subsample``,
+``ltr_domains``) without those kwargs, and the tree step's guard.
 """
 
 import logging
@@ -124,3 +125,44 @@ def test_alt_cfgs_parse(base, tmp_path):
         assert pipe.alt_sgs != pipe.sgs
         got[package] = pipe.alt_sgs
     assert got["subphaser_torch"] == got["subphaser_tpu"]
+
+
+def test_tree_defaults_without_kwargs(base, tmp_path):
+    """A library caller that passes neither gets the JAX defaults."""
+    jax_pipe, pipe = (_build(p, base, tmp_path / p, disable_circos=True) for p in PACKAGES)
+    assert pipe.subsample == jax_pipe.subsample == 1000
+    assert pipe.ltr_domains == jax_pipe.ltr_domains == ["INT", "RT", "RH"]
+
+
+@pytest.mark.parametrize("error", ["host", "kernel", "cuda_fault"])
+def test_tree_step_guard(base, tmp_path, monkeypatch, caplog, error):
+    """A host failure of the tree step is logged and the run goes on (the
+    JAX package's behaviour); a KernelError is raised, and so is a failure
+    after which the card reports a fault."""
+    import torch
+
+    from subphaser_torch import kernels
+    from subphaser_torch.ltr import tree
+
+    def fail(*_args, **_kwargs):
+        raise {"kernel": kernels.KernelError("launch failed"),
+               "cuda_fault": RuntimeError("CUDA error: an illegal memory access"),
+               "host": ValueError("bad newick")}[error]
+
+    def faulted(_device):
+        raise kernels.KernelError("CUDA error after a kernel launch")
+
+    monkeypatch.setattr(tree, "build_ltr_trees", fail)
+    monkeypatch.setattr(kernels, "synchronize", faulted)
+    pipe = _build("subphaser_torch", base, tmp_path, disable_circos=True)
+    pipe.enriched_ltrs, pipe.para_prefix = [object()], str(tmp_path / "p")
+    if error != "host":
+        if error == "cuda_fault":
+            pipe.device = torch.device("cuda", 0)
+        with pytest.raises(kernels.KernelError):
+            pipe._step_ltr_tree(None, {}, {})
+        return
+    with caplog.at_level(logging.WARNING, logger="subphaser_torch"):
+        pipe._step_ltr_tree(None, {}, {})
+    assert "LTR tree step failed: bad newick" in _messages(caplog, "subphaser_torch")
+    assert "ltr_tree" in pipe.step_seconds

@@ -54,7 +54,8 @@ def test_no_jax_or_reference_package_in_sources():
     assert {"kmer_pair.py", "count_pair.py", "mapbins_pair.py", "sort_primitives.py",
             "sort_primitives.cu", "radix_sort.cu", "bitonic_sort.cu", "hmm_scan.cu",
             "ltr_native.cpp", "records.py", "native.py", "detect.py", "classify.py",
-            "age.py", "features.py", "colors.py"} <= names
+            "age.py", "features.py", "colors.py", "msa.py", "tree.py",
+            "tree_counts.cu"} <= names
     for path in files:
         text = path.read_text()
         assert not _FORBIDDEN.search(text), path
@@ -186,3 +187,25 @@ def test_ltr_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         classify.ProfileStack([prof])
     assert classify.ProfileStack([prof], device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("module,name", [("msa", "match_counts"), ("tree", "inter_counts")])
+def test_tree_count_wrappers_take_the_plain_version_on_the_cpu_only(module, name):
+    """The LTR trees' count wrappers call their plain version in their CPU
+    branch and nowhere else; on a CUDA tensor they launch
+    csrc/tree_counts.cu (no library matmul or search), count the launch
+    under a lock and raise KernelError when the launch fails."""
+    assert 'kernels.load("tree_counts")' in (PORT / "ltr" / "msa.py").read_text()
+    text = (PORT / "ltr" / f"{module}.py").read_text()
+    body = text[text.index(f"def {name}("):]
+    body = body[: body.index("\ndef ")]
+    assert body.count(f"{name}_plain(") == 1
+    cpu = 'if aln.device.type == "cpu":' if name == "match_counts" else \
+        'if pad.device.type == "cpu":'
+    assert f"{cpu}\n        return {name}_plain(" in body
+    cuda = body[body.index(f"return {name}_plain("):]
+    for banned in ("torch.matmul", "@", "searchsorted", "_plain("):
+        assert banned not in cuda.split("\n", 1)[1], banned
+    assert "lib = tree_counts_lib()" in cuda
+    assert f'launches["{name}"] += 1' in cuda and "with _launch_lock:" in cuda
+    assert "raise KernelError(" in cuda

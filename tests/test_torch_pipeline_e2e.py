@@ -87,10 +87,9 @@ def test_cli_just_core(runs):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(disable_ltr=False), "A9b"),
     (dict(disable_circos=False), "A11"),
     (dict(custom_features=["f.fa"], disable_circos=False), "A11"),
-    (dict(disable_ltr=False, disable_circos=False), "A9b.*A11"),
+    (dict(disable_ltr=False, disable_circos=False), "A11"),
     (dict(n_devices=2), "A12"),
     (dict(trace="trace_dir"), "A14"),
 ])
@@ -101,3 +100,12 @@ def test_unported_steps_refused(runs, extra, item):
     kw = dict(KW, **extra)
     with pytest.raises(NotImplementedError, match=item):
         TP([genome], [cfg], device="cpu", **kw)
+
+
+def test_ltr_step_with_trees_accepted(runs):
+    """The LTR step runs whole, its trees included (no -disable_ltrtree)."""
+    from subphaser_torch.phase.pipeline import Pipeline as TP
+
+    _base, genome, cfg, _ = runs
+    pipe = TP([genome], [cfg], device="cpu", **dict(KW, disable_ltr=False))
+    assert not pipe.disable_ltr and not pipe.disable_ltrtree
