@@ -68,13 +68,34 @@ Phases, each printing one line; any failure raises and exits non-zero:
             and both anchor kernels must launch; and the same default run
             once more on the card with -trace: the device-busy seconds of
             each step (the summed kernel time of the torch.profiler trace
-            inside the step's window) are printed;
+            inside the step's window) are printed. Before the default run,
+            the k = 15 LTR step once more on the card from that run's
+            checkpoints with SUBPHASER_FEATURE_MAP=device (the LTR k-mer
+            mapping by genome tiles on the card, trees off): its four LTR
+            files must be byte-identical to the host route's;
 6. main     the port's CLI at real size: tools/gen_wheat_scale.py 2 80, a
             480 Mb allohexaploid (2 homoeologous sets x A/B/D x 80 Mb), with
             -min_freq 200 and the default 1000 bootstrap replicates. All six
             chromosomes must phase by subgenome with bootstrap >= 90, the
             dense mapping path must run, and the sort kernel must launch.
             Prints seconds per step, Mbp/s and peak device memory.
+6b. stats   ops/stats and the PCA at real size: fisher_enrich_pvals
+            (csrc/stats.cu's fisher_right_tail) through its entry point on
+            phase main's .subgenome.bin.count (~48,000 bins x 3 SGs) and on
+            it tiled to a 14 Gb wheat's 1.4 M bins, with the launch count
+            read around the two calls; the kernel against its plain version
+            on the card (max relative error <= 1e-4 on p > 1e-30, the same
+            decisions at 0.05) and the share of decisions at 0.05 that
+            agree with the host float64 test (reported, not gated); bh_fdr,
+            the t-test, Mann-Whitney and Kruskal on phase main's k-mer
+            matrix, card against CPU at the CPU tests' tolerances;
+            PhaseCluster.pca on the card against the CPU (scores within
+            1e-3 after z-scoring in the columns whose eigenvalues are
+            resolved, ratios within 1e-5). Prints the kernel's wrapper ms,
+            device ms (bare launches queued behind a spin), plain ms and
+            its bound: three special-function calls a term over the SFU's
+            16 a clock an SM, against its float32 operations at 67 TFLOP/s
+            and its bytes; no single PyTorch call computes it;
 7. main_k17 the same genome and options at -k 17: pair codes (int64 keys)
             through counting and the searchsorted mapping path. Same checks,
             and the significant k-mers must be 17 letters of ACGT.
@@ -160,6 +181,21 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores (data she
 # on the H100 a register compare-exchange stage of the cluster kernel runs
 # above that rate, and sm_90 fuses an add and a max into one instruction.)
 INT32_OPS_PER_CLOCK_PER_SM = 128
+# special-function unit (MUFU) results a clock an SM (CUDA C Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0)
+SFU_OPS_PER_CLOCK_PER_SM = 16
+# float32 operations a term of fisher_right_tail's recurrence, besides its
+# three special-function calls: 8 adds and 2 products of the ratio and its
+# quotient, 2 compares, the clamp, the log term's add, and logaddexp's max,
+# difference, absolute value, negation, add and its -inf test
+FISHER_OPS_PER_TERM = 21
+# an eigenvector of a float32 gram matrix is known to ~(its relative
+# error, ~1e-6 for sums of 10^6 products) / (relative gap to its neighbours):
+# columns with a gap above 1e-3 are held to 1e-3
+PCA_GAP = 1e-3
+STATS_WHEAT_BINS = 1_400_000  # 10 kb bins of a 14 Gb wheat
+STATS_KMERS = 1 << 20  # rows of phase main's k-mer matrix for the t, U and H tests
+STATS_HOST_BUDGET_S = 60.0  # host float64 seconds a matrix of phase stats may take
 SORT_SIZES = [2, 1 << 10, 1 << 18, 1 << 23, 1 << 27]
 MAIN_SETS, MAIN_CHROM_MB = 2, 80
 CORE_FILES = [".kmer.mat", ".chrom-subgenome.tsv", ".sig.kmer-subgenome.tsv",
@@ -839,6 +875,7 @@ def phase_parity() -> dict:
                                f"launch: {groups} {res['launches'][run]}")
         res["trees"][run] = {g: len(open(f"{gpu.para_prefix}.{g}.tree.map").readlines())
                              for g in trees}
+    res["feature_map_device"] = parity_feature_map(fa, cfg, hmm)
     res.update(parity_default(fa, cfg, hmm))
     log(f"parity {json.dumps(res)}")
     log("phase parity ok: 12 Mb genome at k = 15 (LTR step with trees, the alignment and the "
@@ -846,6 +883,45 @@ def phase_parity() -> dict:
         "LTR files, every tree file and the assignments; the default run's "
         f"{len(res['pafs'])} PAFs cuda == cpu")
     return res
+
+
+def parity_feature_map(fa: str, cfg: str, hmm: str) -> dict:
+    """The LTR step's k-mer mapping by the device route
+    (SUBPHASER_FEATURE_MAP=device: genome tiles of the features on the
+    card) from the card's k = 15 run's checkpoints (detection and
+    classification load; trees off): its LTR files must be byte-identical
+    to that run's, which took the host route, and the host route must not
+    run."""
+    from subphaser_torch.phase import features
+
+    small = os.path.join(WORK, "small")
+    out = os.path.join(small, "cuda_k15_devmap")
+    shutil.copytree(os.path.join(small, "cuda_k15", "tmp"), os.path.join(out, "tmp"))
+    host_calls = []
+    host_route = features.FeaturePack._map_counts_host
+
+    def counted(self, *args, **kwargs):
+        host_calls.append(1)
+        return host_route(self, *args, **kwargs)
+
+    features.FeaturePack._map_counts_host = counted
+    os.environ["SUBPHASER_FEATURE_MAP"] = "device"
+    try:
+        pipe = run_cli(fa, cfg, out, "-k", "15", "-min_freq", "4", "-lower_count", "2",
+                       "-tile_bases", str(1 << 20), "-replicates", "100", "-disable_ltrtree",
+                       "-device", "cuda", ltr=["-hmm_db", hmm])
+    finally:
+        os.environ.pop("SUBPHASER_FEATURE_MAP")
+        features.FeaturePack._map_counts_host = host_route
+    if host_calls:
+        raise RuntimeError(f"the device feature-mapping route took the host route "
+                           f"{len(host_calls)} times")
+    ref = os.path.join(small, "cuda_k15", "out", os.path.basename(pipe.para_prefix))
+    for suffix in LTR_OUT_FILES:
+        if not same_bytes(pipe.para_prefix + suffix, ref + suffix):
+            raise RuntimeError(f"{suffix} differs between the device and host feature-map routes")
+    return {"ltr_map_s": round(pipe.step_seconds["ltr_map"], 3),
+            "enriched_ltrs": len(pipe.enriched_ltrs), "files": len(LTR_OUT_FILES)}
 
 
 def parity_default(fa: str, cfg: str, hmm: str) -> dict:
@@ -1434,10 +1510,241 @@ def phase_main(k: int = 15) -> dict:
         "sig_kmers": len(kmers),
         "assignments": read_assignments(pipe),
     }
+    if k == 15:
+        MAIN_RUN["pipe"] = pipe  # phase stats works on this run's data
     log(f"{phase} " + json.dumps(result))
     log(f"phase {phase} ok: {mbp:.0f} Mb phased at k = {k}, "
         f"{'dense' if pipe.map_dense else 'searchsorted'} mapping, {launches} sort launches")
     return result
+
+
+MAIN_RUN: dict = {}
+
+
+def read_bin_counts(path: str):
+    """The (bins, SG) int64 count columns of a .subgenome.bin.count."""
+    import numpy as np
+
+    with open(path) as f:
+        rows = [line.rstrip("\n").split("\t")[3:] for line in f if not line.startswith("#")]
+    return np.array(rows, dtype=np.int64)
+
+
+def fisher_bounds(tables, max_terms: int, int32_rate: dict) -> dict:
+    """fisher_right_tail's bound on these tables: the terms the recurrence
+    runs (min(upper - a, max_terms) a table, 0 where a > upper) at three
+    special-function calls a term over the SFU's 16 a clock an SM at the
+    maximum SM clock, against FISHER_OPS_PER_TERM float32 operations a term
+    at 67 TFLOP/s and 20 bytes a table at 3.35 TB/s; the largest."""
+    import torch
+
+    a, b, c, _d = (t.double() for t in tables)
+    terms = float(torch.clamp(torch.minimum(a + b, a + c) - a, 0, max_terms).sum())
+    n = tables[0].numel()
+    sfu_per_s = SFU_OPS_PER_CLOCK_PER_SM * int32_rate["sms"] * int32_rate["sm_clock_mhz"] * 1e6
+    sfu_ms = 3 * terms / sfu_per_s * 1e3
+    fp32_ms = FISHER_OPS_PER_TERM * terms / FP32_OPS_PER_S * 1e3
+    bytes_bound = bytes_ms(20 * n)
+    bound = max(sfu_ms, fp32_ms, bytes_bound)
+    return {"tables": n, "terms": terms, "sfu_ms": sfu_ms, "fp32_ms": fp32_ms,
+            "bytes_ms": bytes_bound, "bound_ms": bound,
+            "bound_by": "bytes" if bound == bytes_bound else "operations"}
+
+
+def pca_check(cluster, n: int) -> dict:
+    """PhaseCluster.pca on the card against the same cluster's data on the
+    CPU: scores within 1e-3 after z-scoring in every column whose
+    eigenvalue is resolved (its ratio apart from its neighbours' by more
+    than PCA_GAP; a column of near-equal eigenvalues is any rotation of its
+    pair and is only reported), ratios within 1e-5. The leading column
+    must be resolved."""
+    import copy
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    s_gpu, r_gpu = cluster.pca(n)
+    gpu_s = time.perf_counter() - t0
+    cpu = copy.copy(cluster)
+    cpu._data = cluster._data.cpu()
+    t0 = time.perf_counter()
+    s_cpu, r_cpu = cpu.pca(n)
+    cpu_s = time.perf_counter() - t0
+    _, r_all = cpu.pca(len(cluster.chrs))  # the neighbours of the last column
+    gaps = np.abs(np.diff(np.concatenate([[np.inf], r_all, [-np.inf]])))
+    resolved = [i for i in range(s_gpu.shape[1]) if min(gaps[i], gaps[i + 1]) > PCA_GAP]
+    col_err = np.abs(s_gpu - s_cpu).max(axis=0)
+    ratio_err = float(np.abs(r_gpu - r_cpu).max())
+    if 0 not in resolved or max(col_err[resolved]) > 1e-3 or ratio_err > 1e-5:
+        raise RuntimeError(f"PCA on the card disagrees with the CPU: column errors {col_err}, "
+                           f"resolved {resolved}, ratio error {ratio_err}")
+    return {"n_components": n, "chroms": len(cluster.chrs), "kmers": cluster._data.shape[1],
+            "ratio": r_gpu.tolist(), "resolved_columns": resolved,
+            "score_max_abs_err_by_column": col_err.tolist(), "ratio_max_abs_err": ratio_err,
+            "cuda_s": gpu_s, "cpu_s": cpu_s}
+
+
+def host_pvals_sample(counts, reps: int, budget_s: float = STATS_HOST_BUDGET_S):
+    """stats_host's float64 p-values of np.tile(counts, (reps, 1)) on a
+    seeded random sample of counts' rows, in chunks of 1,000 rows until
+    ``budget_s`` has passed (all rows where they fit): every tile's tables
+    are the same, as the margins are the whole matrix's, so a row's tables
+    stand for all its copies. (scipy's float64 tail takes far longer a
+    table at a 14 Gb genome's margins on some installations.) Returns
+    (row indices, p-values (rows, SG)); at reps = 1 the function's tables
+    are held to stats_host.fisher_enrich_pvals."""
+    import numpy as np
+
+    from subphaser_torch.ops import stats_host
+
+    total = counts.sum(axis=0) * reps
+    grand = total.sum()
+    order = np.random.default_rng(0).permutation(counts.shape[0])
+    done, parts = 0, []
+    t0 = time.perf_counter()
+    while done < order.size and (not parts or time.perf_counter() - t0 < budget_s):
+        x11 = counts[order[done:done + 1000]]
+        x12 = x11.sum(axis=1, keepdims=True) - x11
+        x21u = total[None, :] - x11
+        x22 = np.minimum(grand - x21u - x12, stats_host.MAX_INT)
+        x21 = np.minimum(x21u, stats_host.MAX_INT)
+        parts.append(stats_host.fisher_right_tail(x11, x12, x21, x22))
+        done += x11.shape[0]
+    rows, p = order[:done], np.concatenate(parts)
+    if reps == 1 and done == order.size and \
+            not np.array_equal(p, stats_host.fisher_enrich_pvals(counts)[rows]):
+        raise RuntimeError("host_pvals_sample disagrees with stats_host.fisher_enrich_pvals")
+    return rows, p
+
+
+def phase_stats() -> dict:
+    """ops/stats and the PCA at real size: fisher_enrich_pvals through its
+    entry point on phase main's bin counts and tiled to a 14 Gb wheat's
+    bins (the path: counts reset before, read after), the kernel against
+    its plain version on the card and the decisions against the host
+    float64 test; bh_fdr, the t-test, Mann-Whitney and Kruskal on the card
+    against the CPU; PhaseCluster.pca on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from subphaser_torch.ops import stats
+
+    pipe = MAIN_RUN.pop("pipe", None)
+    if pipe is None:
+        raise RuntimeError("phase stats needs phase main's run")
+    res = {"launches_before": dict(stats.launches)}  # every phasing path so far
+    if stats.launches["fisher_right_tail"] != 0:
+        raise RuntimeError(f"fisher_right_tail launched on a phasing path: {stats.launches}")
+    counts = read_bin_counts(pipe.para_prefix + ".subgenome.bin.count")
+    reps = -(-STATS_WHEAT_BINS // counts.shape[0])
+    inputs = {"main": counts, "wheat_14gb": np.tile(counts, (reps, 1))}
+    dev = {name: torch.from_numpy(c).cuda() for name, c in inputs.items()}
+    stats.launches["fisher_right_tail"] = 0
+    pvals = {name: stats.fisher_enrich_pvals(x) for name, x in dev.items()}
+    torch.cuda.synchronize()
+    res["launches"] = stats.launches["fisher_right_tail"]
+    if res["launches"] != len(dev):
+        raise RuntimeError(f"fisher_enrich_pvals launched the kernel {res['launches']} times "
+                           f"for {len(dev)} calls")
+    _ops, int32_rate = card_int32_ops_per_s()
+    lib = stats.stats_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, x in dev.items():
+        tables = [t.contiguous() for t in stats.enrich_tables(x)]
+        got = pvals[name]
+        log(f"stats {name}: {tables[0].numel()} tables")
+        t0 = time.perf_counter()
+        want = stats.fisher_right_tail_plain(*tables)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        log(f"stats {name}: plain version {plain_ms / 1e3:.1f} s")
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        m = w > 1e-30
+        rel = float(np.max(np.abs(g[m] - w[m]) / w[m])) if m.any() else 0.0
+        if rel > 1e-4 or not np.array_equal(g <= 0.05, w <= 0.05) \
+                or not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise RuntimeError(f"stats {name}: fisher_right_tail disagrees with its plain "
+                               f"version (max rel {rel} on p > 1e-30)")
+        out = torch.empty_like(tables[0])
+
+        def launch():
+            if lib.st_fisher_right_tail(*(t.data_ptr() for t in tables), out.numel(), 16384,
+                                        out.data_ptr(), stream) != 0:
+                raise RuntimeError("st_fisher_right_tail launch failed")
+        t0 = time.perf_counter()
+        rows, host = host_pvals_sample(counts, inputs[name].shape[0] // counts.shape[0])
+        host_s = time.perf_counter() - t0
+        log(f"stats {name}: host float64 {host_s:.1f} s on {rows.size} of {counts.shape[0]} "
+            f"rows")
+        row = {
+            "shape": list(inputs[name].shape), "grand_total": int(inputs[name].sum()),
+            "max_rel_err": rel, "max_abs_err": float(np.nanmax(np.abs(g - w))),
+            "ms": time_ms(lambda: stats.fisher_right_tail(*tables)),
+            "device_ms": queued_ms(launch, calls=5),
+            "plain_ms": plain_ms, "library_ms": None,
+            **fisher_bounds(tables, 16384, int32_rate),
+            "host_float64_s": host_s,
+            "host_float64_tables": int(host.size),
+            "decisions_at_005": int((g[rows] <= 0.05).sum()),
+            "host_decisions_at_005": int((host <= 0.05).sum()),
+            "share_agreeing_with_host_float64": float(np.mean((g[rows] <= 0.05)
+                                                              == (host <= 0.05))),
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        log(f"stats {name}: kernel {row['ms']:.3f} ms, device {row['device_ms']:.3f} ms")
+        res[name] = row
+    stats.launches["fisher_right_tail"] = 0  # the later phases' paths: read at the end
+    t0 = time.perf_counter()
+    res["others"] = other_stats_check(pipe, pvals["main"])
+    log(f"stats: the other functions {time.perf_counter() - t0:.1f} s")
+    res["pca"] = pca_check(pipe.cluster, max(2, pipe.nsg))
+    log(f"stats {json.dumps(res)}")
+    log(f"phase stats ok: fisher_right_tail within rel {max(res[n]['max_rel_err'] for n in dev)}"
+        f" of its plain version at {[res[n]['tables'] for n in dev]} tables, decisions equal; "
+        f"{res['main']['share_agreeing_with_host_float64']:.6f} / "
+        f"{res['wheat_14gb']['share_agreeing_with_host_float64']:.6f} of decisions as the host "
+        f"float64 test's; the other functions and the PCA cuda == cpu")
+    return res
+
+
+def other_stats_check(pipe, pvals) -> dict:
+    """bh_fdr of phase main's Fisher p-values, and the t-test, Mann-Whitney
+    and Kruskal of its k-mer matrix (the first STATS_KMERS rows, the two
+    groups of the first two subgenomes; Kruskal over all), on the card
+    against the CPU, at the CPU tests' tolerances."""
+    import numpy as np
+    import torch
+
+    from subphaser_torch.ops import stats
+
+    freqs = pipe.cluster.freqs[:STATS_KMERS]
+    groups = pipe.cluster.group_idx_by_sg()
+    g1, g2 = freqs[:, groups[0]], freqs[:, groups[1]]
+    everything = np.concatenate([freqs[:, g] for g in groups], axis=1)
+    sizes = np.array([len(g) for g in groups])
+    t_args = (g1.mean(1), g1.var(1, ddof=1), np.full(len(freqs), float(g1.shape[1])),
+              g2.mean(1), g2.var(1, ddof=1), np.full(len(freqs), float(g2.shape[1])))
+    calls = {
+        "bh_fdr": (lambda dev: stats.bh_fdr(pvals.reshape(-1).to(dev)), dict(rtol=1e-5)),
+        "ttest_ind_from_stats": (lambda dev: stats.ttest_ind_from_stats(
+            *(torch.from_numpy(a).to(dev) for a in t_args)), dict(rtol=2e-4, atol=1e-6)),
+        "mannwhitneyu": (lambda dev: stats.mannwhitneyu(torch.from_numpy(g1).to(dev),
+                                                        torch.from_numpy(g2).to(dev)),
+                         dict(rtol=1e-4)),
+        "kruskal": (lambda dev: stats.kruskal(torch.from_numpy(everything).to(dev), sizes),
+                    dict(rtol=1e-4)),
+    }
+    out = {}
+    for name, (fn, tol) in calls.items():
+        t0 = time.perf_counter()
+        got = fn("cuda").cpu().numpy()
+        cuda_s = time.perf_counter() - t0
+        want = fn("cpu").numpy()
+        np.testing.assert_allclose(got, want, **tol, err_msg=f"stats {name}: cuda != cpu")
+        ok = ~np.isnan(want)
+        out[name] = {"n": int(got.size), "nan": int((~ok).sum()), "cuda_s": cuda_s,
+                     "max_abs_err": float(np.max(np.abs(got[ok] - want[ok]), initial=0.0))}
+    return out
 
 
 def tree_kernel_entries(res: dict) -> list[dict]:
@@ -1684,8 +1991,38 @@ def anchor_kernel_entries(res: dict) -> list[dict]:
     return entries
 
 
-PHASES = ["build", "sort", "primitives", "hmm", "parity", "main", "main_k17", "ltr", "trees",
-          "blocks", "anchors"]
+def stats_kernel_entry(res: dict) -> dict:
+    """The kernels-line entry of fisher_right_tail (a hand-written kernel
+    of an XLA-lowered function): its numbers are phase stats' on phase
+    main's bin counts; it launches on no phasing path, so its launches are
+    phase stats' calls of fisher_enrich_pvals."""
+    from subphaser_torch.ops import stats
+
+    st = res["stats"]
+    st["launches_after"] = stats.launches["fisher_right_tail"]
+    if st["launches_after"]:
+        raise RuntimeError(f"fisher_right_tail launched on a phasing path after phase stats: "
+                           f"{st['launches_after']}")
+    row = st["main"]
+    return {
+        "name": "fisher_right_tail",
+        "route": "cuda",
+        "source": "subphaser_torch/csrc/stats.cu",
+        "replaces": tpu_kernel_site("*_tpu/ops/stats.py", "def fisher_right_tail"),
+        "launches": st["launches"],
+        "launches_by_path": {"phases_before_stats": st["launches_before"]["fisher_right_tail"],
+                             "stats": st["launches"],
+                             "phases_after_stats": st["launches_after"]},
+        "max_abs_err": max(st[n]["max_abs_err"] for n in ("main", "wheat_14gb")),
+        **{key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "share_of_bound", "max_rel_err", "shape",
+                                     "terms", "sfu_ms", "fp32_ms", "bytes_ms")},
+        "wheat_14gb": st["wheat_14gb"],
+    }
+
+
+PHASES = ["build", "sort", "primitives", "hmm", "parity", "main", "stats", "main_k17", "ltr",
+          "trees", "blocks", "anchors"]
 
 
 def main() -> int:
@@ -1814,6 +2151,7 @@ def main() -> int:
         })
     kernels += tree_kernel_entries(res)
     kernels += anchor_kernel_entries(res)
+    kernels.append(stats_kernel_entry(res))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

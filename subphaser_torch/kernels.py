@@ -34,6 +34,7 @@ SOURCES = {
     "hmm_scan": os.path.join(PKG_DIR, "csrc", "hmm_scan.cu"),
     "tree_counts": os.path.join(PKG_DIR, "csrc", "tree_counts.cu"),
     "anchors": os.path.join(PKG_DIR, "csrc", "anchors.cu"),
+    "stats": os.path.join(PKG_DIR, "csrc", "stats.cu"),
     "ltr_native": os.path.join(PKG_DIR, "csrc", "ltr_native.cpp"),
 }
 HOST_SOURCES = {"ltr_native"}  # g++, not nvcc

@@ -189,6 +189,16 @@ class PhaseCluster:
             logger.info("\t%d %s-specific kmers", int((canon_sg == si).sum()), sg)
         return sig
 
+    def pca(self, n_components: int = 2):
+        """PCA scores for plotting (reference Cluster.py:48-54), computed on
+        the cluster's device, z-scored, returned as numpy."""
+        from subphaser_torch.ops.pca import pca_fit_transform
+
+        n_components = min(n_components, len(self.chrs))
+        scores, ratio = pca_fit_transform(self._data, n_components)
+        scores = kops.zscore(scores, axis=0)
+        return scores.cpu().numpy(), ratio.cpu().numpy()
+
 
 def write_matrix_file(matrix: KmerMatrix, k: int, fout) -> None:
     """kmer.mat TSV (reference Jellyfish.py:515-520): normalized frequencies."""

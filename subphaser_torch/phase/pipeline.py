@@ -10,8 +10,8 @@ resumes from a tmpdir either package wrote.
 
 Several devices are not ported yet, and are refused with
 NotImplementedError naming the ROADMAP item (A12). The core figures
-(histogram, heatmap, PCA) are ROADMAP A6b; this module logs that they are
-not written. The circos figure is drawn where matplotlib imports.
+(histogram, heatmap, PCA) and the circos figure are drawn where matplotlib
+imports; elsewhere their step logs that they are not drawn.
 """
 
 from __future__ import annotations
@@ -298,6 +298,42 @@ class Pipeline:
         with trace(self.trace):
             return self._run()
 
+    @staticmethod
+    def _can_plot(what: str) -> bool:
+        """Whether matplotlib imports; logs that ``what`` not drawn where
+        it does not (a GPU host may have no matplotlib)."""
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            logger.info("matplotlib is not installed: %s not drawn", what)
+            return False
+        return True
+
+    def _plot_core_figures(self, res, cluster: PhaseCluster, sig: SigKmers):
+        """The heatmap and the PCA figure (JAX pipeline.py:1015-1035). The
+        PCA runs on the cluster's device outside the guard: a device fault
+        raises; only a drawing failure is logged."""
+        from subphaser_torch.viz.plots import plot_heatmap, plot_pca
+
+        d_colors = self.sg_color.for_names(self.sg_names)
+        # per-kmer SG for heatmap column colors
+        kmer_sg = np.full(res.matrix.codes.size, -1, dtype=np.int64)
+        idx = np.searchsorted(res.matrix.codes, sig.canon_codes)
+        kmer_sg[idx] = sig.canon_sg
+        scores, ratio = cluster.pca(n_components=max(2, self.nsg))
+        heatfig = self.para_prefix + ".kmer.mat." + self.figfmt
+        pcafig = self.para_prefix + ".kmer_pca." + self.figfmt
+        try:
+            plot_heatmap(
+                res.matrix.freqs, self.chrom_labels, self.d_sg, kmer_sg,
+                self.sg_names, d_colors, heatfig,
+                **self.heatmap_kw,
+            )
+            plot_pca(scores, ratio, self.chrom_labels, self.d_sg, d_colors, pcafig)
+            logger.info("Wrote figures %s, %s", heatfig, pcafig)
+        except Exception as e:  # plotting must never kill the pipeline
+            logger.warning("Core figures failed: %s", e)
+
     def _run(self):
         t0 = time.perf_counter()
         self.outdir = os.path.realpath(self.outdir)
@@ -377,6 +413,14 @@ class Pipeline:
         with xopen(matfile, "wt") as f:
             write_matrix_file(res.matrix, self.k, f)
         logger.info("Wrote %s", matfile)
+        plot_core = self._can_plot("the core figures (histogram, heatmap, PCA) are")
+        if plot_core:
+            from subphaser_torch.viz.plots import plot_histogram
+
+            try:
+                plot_histogram(res.fold_tots, self.para_prefix + ".kmer_freq." + self.figfmt)
+            except Exception as e:  # plotting must never kill the pipeline
+                logger.warning("Histogram plot failed: %s", e)
         t0 = self._timed("filter", t0)
 
         # cluster
@@ -401,8 +445,8 @@ class Pipeline:
                 f, self.k, max_pval=self.max_pval, test_method=self.test_method
             )
         logger.info("Wrote %s", sg_kmers)
-        logger.info("Core figures (k-mer histogram, heatmap, PCA) are not "
-                    "written by the PyTorch port yet")
+        if plot_core:
+            self._plot_core_figures(res, cluster, sig)
         t0 = self._timed("cluster", t0)
 
         if self.just_core:
@@ -776,13 +820,7 @@ class Pipeline:
             )
             self._timed("blocks", t0)
 
-        try:
-            import matplotlib  # noqa: F401
-            can_plot = True
-        except ImportError:
-            can_plot = False
-            logger.info("matplotlib is not installed: the circos figure is not drawn")
-        if can_plot:
+        if self._can_plot("the circos figure is"):
             from subphaser_torch.viz.circos import circos_plot
 
             names = self.chrom_labels
