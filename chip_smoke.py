@@ -106,7 +106,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
             SG-enriched, and both scans must launch, all by the warp route;
             every superfamily group of >= 4 enriched LTRs must get a
             .tree.nwk and a .tree.map, and match_counts must launch
-            (tree_boot + 1) times for each group of the alignment route.
+            (tree_boot + 1) times for each group of the alignment route,
+            every launch by its bits route.
             Prints seconds of detection, classification pass 1 and 2,
             feature mapping, enrichment, ages and trees, the counts,
             launches and peak memory, per tree group its leaves and aligned
@@ -119,11 +120,18 @@ Phases, each printing one line; any failure raises and exits non-zero:
             bootstrap NJ rebuilt from its .trimal (it must give the same
             tree file), timed, with one NJ tree and one bipartition set
             alone: where the alignment route's time goes; match_counts
-            (csrc/tree_counts.cu) bit-exact against its plain version on the
-            largest group's trimmed alignment at its real n and L, with
-            ones and with a bootstrap (multinomial) weight set, and against
-            its library call (the one-hot products as one torch.matmul, TF32
-            off); inter_counts bit-exact against its plain version on the
+            (csrc/tree_counts.cu) bit-exact by its bits route (bit planes
+            and popcounts over the columns expanded by integer weights)
+            against its plain version on the largest group's trimmed
+            alignment at its real n and L, with ones and with a bootstrap
+            (multinomial) weight set, and against its library call (the
+            one-hot products as one torch.matmul, TF32 off); its float route
+            (match_counts_kernel) on fractional weights (0.7 of the bootstrap
+            counts + 0.1) within 2 L 2^-24 sum(w) of its plain version (the
+            worst-case error of float32 sums of L non-negative terms, taken
+            in another order on each side), also through kimura_distances
+            (card against CPU within 1e-3); inter_counts bit-exact against
+            its plain version on the
             sketches of the first 1000 enriched LTRs' whole elements, all
             pairs, with mash_distances' matrices equal on card and CPU; both
             at edge shapes (n = 1, 63, 65; L = 1 and odd; sketches shorter
@@ -131,7 +139,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
             CUDA events, median after a warm-up), device ms (the bare
             kernel launched back to back behind a spin of the card, between
             CUDA events; and by torch.profiler where it records the
-            launches), plain and library ms, and the bound.
+            launches), plain and library ms, and the bound; for
+            match_counts both routes' device ms on the same inputs, the
+            bits route's bound (the larger of its bytes and its popcounts,
+            two a pair and 32-column word at 16 a clock an SM) and the
+            float route's (two float32 adds a pair and weighted column).
 10. blocks  the default run at real size: the 480 Mb genome through the CLI
             with every step at its default (-hmm_db of its fixture
             database), in a copy of phase ltr's tmpdir (core, detection and
@@ -149,12 +161,16 @@ Phases, each printing one line; any failure raises and exits non-zero:
             of phase blocks' genome at mod 16 (the first 2^23-base tile of
             A1, A1's last partial tile, a tile of invalid words, and the
             first tile at a cap below its count: the prefix and the count
-            must equal the full cap's), match_emit (kernel B) on the whole
-            anchor sets of the pair A1-B1, with no run kept, and with every
-            run max_occ long. Prints each kernel's wrapper ms (CUDA events),
-            device ms (bare launches queued behind a spin of the card),
-            plain ms and the bytes bound (inputs read once, outputs written
-            once, at 3.35 TB/s); no single PyTorch call computes either.
+            must equal the full cap's), and the kernels one call launches
+            (a call captured into a CUDA graph, its kernel nodes counted:
+            2, the count and the write pass), match_emit (kernel B) on the
+            whole anchor sets of the pair A1-B1, with no run kept, and with
+            every run max_occ long. Prints each kernel's wrapper ms (CUDA
+            events), device ms (bare launches queued behind a spin of the
+            card; kernel A's two passes also by torch.profiler where it
+            records them), plain ms and the bytes bound (inputs read once,
+            outputs written once, at 3.35 TB/s); no single PyTorch call
+            computes either.
 12. parallel several devices and processes on the one card, on phase main's
             genome: (1) range_slots (csrc/parallel.cu) bit-exact against its
             plain version on chromosome A1's local spectra at D = 2 and 4
@@ -213,6 +229,9 @@ INT32_OPS_PER_CLOCK_PER_SM = 128
 # special-function unit (MUFU) results a clock an SM (CUDA C Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0)
 SFU_OPS_PER_CLOCK_PER_SM = 16
+# 32-bit population counts a clock an SM (the same table, compute capability
+# 9.0): the rate match_counts' bits route is bounded by
+POPC_PER_CLOCK_PER_SM = 16
 # float32 operations a term of fisher_right_tail's recurrence, besides its
 # three special-function calls: 8 adds and 2 products of the ratio and its
 # quotient, 2 compares, the clamp, the log term's add, and logaddexp's max,
@@ -406,6 +425,7 @@ def bare_launch(entry: str, *args):
     def launch():
         if fn(*cargs, stream) != 0:
             raise RuntimeError(f"{entry} launch failed")
+    launch.tensors = args  # the pointers' tensors live as long as the launch
     return launch
 
 
@@ -807,7 +827,14 @@ def reset_tree_launches() -> None:
     from subphaser_torch.ltr import msa, tree
 
     msa.launches["match_counts"] = 0
+    msa.route_launches["match_counts"] = dict.fromkeys(msa.route_launches["match_counts"], 0)
     tree.launches["inter_counts"] = 0
+
+
+def match_counts_routes() -> dict[str, int]:
+    from subphaser_torch.ltr import msa
+
+    return dict(msa.route_launches["match_counts"])
 
 
 def tree_launches() -> dict[str, int]:
@@ -1167,6 +1194,10 @@ def phase_ltr() -> dict:
     if any(r["warp"] != launches[name] for name, r in by_route.items()):
         raise RuntimeError(f"the ltr path's scans did not all take the warp route: {by_route}")
     launches.update(tree_launches())  # inter_counts: the sketch route, none here
+    by_route["match_counts"] = match_counts_routes()
+    if by_route["match_counts"]["bits"] != launches["match_counts"]:
+        raise RuntimeError(f"the ltr path's match_counts did not all take the bits route: "
+                           f"{by_route['match_counts']} of {launches['match_counts']}")
     trees = check_trees(pipe, launches)
     LTR_RUN["pipe"] = pipe  # phase trees works on this run's data
     result = {
@@ -1290,48 +1321,124 @@ def tree_weight_sets(length: int, seed: int = 0) -> dict:
             .astype(np.float32)}
 
 
+def popc_per_s() -> float:
+    """The card's 32-bit population counts a second: POPC_PER_CLOCK_PER_SM
+    x SMs x the maximum SM clock nvidia-smi reads."""
+    clock = card_int32_ops_per_s()[1]
+    return POPC_PER_CLOCK_PER_SM * clock["sms"] * clock["sm_clock_mhz"] * 1e6
+
+
+def match_counts_bits_launch(a, w_h, V, M):
+    """A bare launch of the bits route's C entry (tc_match_counts_bits:
+    pack_planes_kernel, then bit_counts_kernel) on the expansion of
+    ``w_h``, with its own index and scratch."""
+    import torch
+
+    from subphaser_torch.ltr import msa
+
+    n, length = a.shape
+    idx = torch.from_numpy(msa.expansion_index(w_h)).cuda()
+    planes = torch.empty(n * -(-idx.numel() // 32) * msa.PLANES, dtype=torch.int32,
+                         device="cuda")
+    return bare_launch("tc_match_counts_bits", a, n, length, idx, idx.numel(), planes, V, M)
+
+
 def check_match_counts(aln_h, w_h, timed: bool) -> dict:
     """match_counts on the card against its plain version and the library
-    call (equal, exact); with ``timed``, the times and the bound."""
+    call (equal, exact), which integer weights send by the bits route; with
+    ``timed``, the times of the bits route and of the float route (the
+    bare C entries on the same inputs) and both routes' bounds."""
     import torch
 
     from subphaser_torch.ltr import msa
 
     n, length = aln_h.shape
+    if msa.match_counts_route(w_h) != "bits":
+        raise RuntimeError("integer weights that match_counts would not send by the bits route")
     a, w = torch.from_numpy(aln_h).cuda(), torch.from_numpy(w_h).cuda()
-    before = msa.launches["match_counts"]
+    before, by_route = msa.launches["match_counts"], match_counts_routes()
     (v, m), (pv, pm) = msa.match_counts(a, w), msa.match_counts_plain(a, w)
     oh, ohw = one_hot_stack(a, w)
     lib = torch.matmul(ohw, oh.transpose(1, 2))
     torch.cuda.synchronize()
-    if msa.launches["match_counts"] != before + 1:
-        raise RuntimeError("match_counts took more or less than one launch")
+    if (msa.launches["match_counts"] != before + 1
+            or match_counts_routes() != dict(by_route, bits=by_route["bits"] + 1)):
+        raise RuntimeError("match_counts took more or less than one launch of the bits route")
     if not (torch.equal(v, pv) and torch.equal(m, pm)):
         raise RuntimeError(f"match_counts disagrees with its plain version at n={n} L={length}")
     if not (torch.equal(lib[msa.GAP], v) and torch.equal(lib[: msa.GAP].sum(0), m)):
         raise RuntimeError(f"the one-hot matmul disagrees with match_counts at n={n} L={length}")
-    row = {"n": n, "L": length,
+    row = {"n": n, "L": length, "route": "bits",
            "max_abs_err": max(float((v - pv).abs().max()), float((m - pm).abs().max()))}
     if timed:
-        # two float32 adds (V, M) a pair and weighted column: the n(n + 1)/2
-        # unordered pairs over the columns of nonzero weight; bytes: the
-        # alignment, the weights and the two outputs, once
-        cols = int((w != 0).sum())
-        ops_ms = n * (n + 1) // 2 * cols * 2 / FP32_OPS_PER_S * 1e3
-        bytes_ms = (n * length + 4 * length + 8 * n * n) / HBM_BYTES_PER_S * 1e3
+        # bytes: the alignment, the weights and the two outputs, once;
+        # popcounts: two (V, M) a pair and 32-column word of the expanded
+        # columns, over the n(n + 1)/2 unordered pairs; the float route's
+        # bound, which its design defines: two float32 adds a pair and
+        # weighted column
+        pairs = n * (n + 1) // 2
+        cols, expanded = int((w != 0).sum()), int(w_h.sum())
+        bytes_bound = (n * length + 4 * length + 8 * n * n) / HBM_BYTES_PER_S * 1e3
+        popc_bound = 2 * pairs * -(-expanded // 32) / popc_per_s() * 1e3
+        float_bound = pairs * cols * 2 / FP32_OPS_PER_S * 1e3
         V, M = torch.empty_like(v), torch.empty_like(m)
+        bits = match_counts_bits_launch(a, w_h, V, M)
+        flt = bare_launch("tc_match_counts", a, w, n, length, V, M)
+        pack = device_ms(lambda _x: bits(), None, "pack_planes_kernel", required=False)
+        count = device_ms(lambda _x: bits(), None, "bit_counts_kernel", required=False)
         row.update(
             ms=time_ms(lambda: msa.match_counts(a, w)),
-            device_ms=queued_ms(bare_launch("tc_match_counts", a, w, n, length, V, M)),
-            profiler_ms=device_ms(lambda _x: msa.match_counts(a, w), None,
-                                  "match_counts_kernel", required=False),
+            device_ms=queued_ms(bits),
+            profiler_ms=None if pack is None or count is None else pack + count,
+            profiler_split_ms={"pack_planes_kernel": pack, "bit_counts_kernel": count},
             plain_ms=time_ms(lambda: msa.match_counts_plain(a, w), 3),
             library_ms=time_ms(lambda: torch.matmul(ohw, oh.transpose(1, 2))),
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            weighted_columns=cols)
+            bound_ms=max(bytes_bound, popc_bound),
+            bound_by="operations" if popc_bound >= bytes_bound else "bytes",
+            bytes_bound_ms=bytes_bound, popcount_bound_ms=popc_bound,
+            float_route={"device_ms": queued_ms(flt),
+                         "profiler_ms": device_ms(lambda _x: flt(), None, "match_counts_kernel",
+                                                  required=False),
+                         "bound_ms": float_bound, "bound_by": "operations"},
+            weighted_columns=cols, expanded_columns=expanded)
         row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        row["float_route"]["share_of_bound"] = float_bound / row["float_route"]["device_ms"]
     return row
+
+
+def fractional(w_h):
+    """Non-integer weights from integer ones: 0.7 w + 0.1, float32."""
+    import numpy as np
+
+    return (w_h * np.float32(0.7) + np.float32(0.1)).astype(np.float32)
+
+
+def check_match_counts_float(aln_h, w_h) -> dict:
+    """match_counts with non-integer weights (the float route) against its
+    plain version. Tolerance: 2 L 2^-24 sum(w), twice the worst-case error
+    of a float32 sum of L non-negative terms, as the kernel's adds and the
+    one-hot matmuls sum the same terms in other orders."""
+    import torch
+
+    from subphaser_torch.ltr import msa
+
+    n, length = aln_h.shape
+    if msa.match_counts_route(w_h) != "float":
+        raise RuntimeError("weights that match_counts would not send by the float route")
+    a, w = torch.from_numpy(aln_h).cuda(), torch.from_numpy(w_h).cuda()
+    by_route = match_counts_routes()
+    (v, m), (pv, pm) = msa.match_counts(a, w), msa.match_counts_plain(a, w)
+    torch.cuda.synchronize()
+    if match_counts_routes() != dict(by_route, float=by_route["float"] + 1):
+        raise RuntimeError("match_counts took more or less than one launch of the float route")
+    err = max(float((v - pv).abs().max()), float((m - pm).abs().max()))
+    tol = 2 * length * 2.0 ** -24 * float(w_h.astype("float64").sum())
+    if err > tol:
+        raise RuntimeError(f"match_counts' float route is {err} from its plain version, "
+                           f"above {tol}, at n={n} L={length}")
+    return {"n": n, "L": length, "route": "float", "max_abs_err": err, "tolerance": tol,
+            "ms": time_ms(lambda: msa.match_counts(a, w)),
+            "plain_ms": time_ms(lambda: msa.match_counts_plain(a, w), 3)}
 
 
 def check_inter_counts(pad_h, sizes, timed: bool) -> dict:
@@ -1417,7 +1524,7 @@ def phase_trees() -> dict:
     import torch
 
     from subphaser_torch.ltr import classify as tc
-    from subphaser_torch.ltr import tree
+    from subphaser_torch.ltr import msa, tree
 
     pipe = LTR_RUN.pop("pipe", None)
     if pipe is None:
@@ -1447,17 +1554,41 @@ def phase_trees() -> dict:
               for g, suffixes in tree_files(pipe).items() if ".trimal" in suffixes}
     group = max(groups, key=lambda g: groups[g].shape[0])
     aln = groups[group]
-    rows = {w_name: check_match_counts(aln, w, True)
-            for w_name, w in tree_weight_sets(aln.shape[1]).items()}
+    weight_sets = tree_weight_sets(aln.shape[1])
+    rows = {w_name: check_match_counts(aln, w, True) for w_name, w in weight_sets.items()}
     edges = {}
     for n, length in ((1, 1), (1, 77), (63, 1), (63, 77), (65, 77), (65, 64)):
         a = random_alignment(n, length, n * 100 + length)
         for w_name, w in tree_weight_sets(length, n).items():
             edges[f"n={n} L={length} {w_name}"] = check_match_counts(a, w, False)["max_abs_err"]
+    # the float route: fractional weights, 0.7 of the bootstrap counts + 0.1
+    # (not multiples of a power of 2, so the float32 sums round)
+    frac = check_match_counts_float(aln, fractional(weight_sets["multinomial"]))
+    frac_edge = check_match_counts_float(random_alignment(65, 77, 9),
+                                         fractional(tree_weight_sets(77, 65)["multinomial"]))
+    # the float route through its entry point: kimura_distances with those weights
+    frac_w = fractional(weight_sets["multinomial"])
+    before = match_counts_routes()
+    d_card = msa.kimura_distances(aln, weights=frac_w, device="cuda")
+    after = match_counts_routes()
+    if after != dict(before, float=before["float"] + 1):
+        raise RuntimeError(f"kimura_distances with fractional weights: routes {before} -> {after}")
+    d_err = float(np.abs(d_card - msa.kimura_distances(aln, weights=frac_w, device="cpu")).max())
+    if not d_err <= 1e-3:  # the counts' float32 error through 1 - M/V and the log
+        raise RuntimeError(f"kimura_distances, fractional weights: card - cpu = {d_err}")
+    float_row = dict(rows["ones"]["float_route"], ms=frac["ms"], plain_ms=frac["plain_ms"],
+                     path_launches={"trees_kimura_distances_fractional": 1},
+                     kimura_max_abs_err=d_err,
+                     library_ms=rows["ones"]["library_ms"],
+                     max_abs_err=max(frac["max_abs_err"], frac_edge["max_abs_err"]),
+                     checks={"n=767-path fractional": frac, "n=65 L=77 fractional": frac_edge},
+                     by_weights={k: r["float_route"] for k, r in rows.items()})
     res["match_counts"] = dict(rows["ones"], group=group, by_weights=rows, edges=edges,
                                max_abs_err=max([r["max_abs_err"] for r in rows.values()]
                                                + list(edges.values())))
+    res["match_counts_float"] = dict(float_row, n=aln.shape[0], L=aln.shape[1], group=group)
     log(f"trees match_counts {json.dumps(res['match_counts'])}")
+    log(f"trees match_counts_float {json.dumps(res['match_counts_float'])}")
     res["tree_split"] = tree_split(pipe, group, aln)
     log(f"trees split of the ltr path's {group} tree {json.dumps(res['tree_split'])}")
 
@@ -1481,7 +1612,8 @@ def phase_trees() -> dict:
     del pipe
     torch.cuda.empty_cache()
     log(f"phase trees ok: the sketch route at {leaves} leaves; match_counts bit-exact at "
-        f"n={aln.shape[0]} L={aln.shape[1]} ({group}) and 6 edge shapes; inter_counts "
+        f"n={aln.shape[0]} L={aln.shape[1]} ({group}) and 6 edge shapes by the bits route, "
+        f"within {frac['tolerance']:.3g} by the float route; inter_counts "
         f"bit-exact over {row['pairs']} pairs and 3 edge shapes; mash_distances equal")
     return res
 
@@ -1793,17 +1925,23 @@ def tree_kernel_entries(res: dict) -> list[dict]:
     kernels of XLA-lowered functions), from phases parity, ltr and trees:
     their numbers are phase trees' at real shapes; match_counts launches on
     the ltr path (the alignment route), inter_counts on the sketch route at
-    real size (phase trees), as the ltr path's groups all carry peptides."""
+    real size (phase trees), as the ltr path's groups all carry peptides.
+    match_counts has two entries, its bits route (the one every path
+    takes) and its float route (match_counts_kernel, for non-integer weights):
+    the float route's device time is its bare kernel on the bits route's
+    inputs, its error and wrapper time on fractional weights."""
     tr = res["trees"]
     entries = []
     for name, pattern, needle in (("match_counts", "*/ltr/msa.py", "def _match_counts"),
+                                  ("match_counts_float", "*/ltr/msa.py", "def _match_counts"),
                                   ("inter_counts", "*/ltr/tree.py", "    def inter_counts")):
         row = tr[name]
-        by_path = {"ltr": res["ltr"]["launches"][name],
-                   "ltr_sketch_route": tr["sketch_route"]["launches"][name],
-                   **{f"parity_{run}": counts[name]
+        counter = "match_counts" if name.startswith("match_counts") else name
+        by_path = {"ltr": res["ltr"]["launches"][counter],
+                   "ltr_sketch_route": tr["sketch_route"]["launches"][counter],
+                   **{f"parity_{run}": counts[counter]
                       for run, counts in res["parity"]["launches"].items()}}
-        entries.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": "subphaser_torch/csrc/tree_counts.cu",
@@ -1815,7 +1953,19 @@ def tree_kernel_entries(res: dict) -> list[dict]:
                                          "share_of_bound")},
             "shape": {key: row[key] for key in ("n", "L", "s", "pairs", "timed_pairs", "group")
                       if key in row},
-        })
+        }
+        if name == "match_counts":  # the ltr path's launches, all by this route
+            entry["launches"] = res["ltr"]["launches_by_route"]["match_counts"]["bits"]
+            entry["launches_by_route_on_ltr"] = res["ltr"]["launches_by_route"]["match_counts"]
+        if name == "match_counts_float":  # on no path: kimura_distances on fractional weights
+            entry["launches_by_path"] = dict(row["path_launches"], ltr=res["ltr"][
+                "launches_by_route"]["match_counts"]["float"])
+            entry["launches"] = row["path_launches"]["trees_kimura_distances_fractional"]
+        if name == "match_counts":
+            entry.update({key: row[key] for key in ("bytes_bound_ms", "popcount_bound_ms",
+                                                    "profiler_split_ms", "expanded_columns")})
+            entry["float_route_bound_ms"] = row["float_route"]["bound_ms"]
+        entries.append(entry)
     return entries
 
 
@@ -1886,6 +2036,40 @@ def bytes_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
+def graph_kernel_launches(fn) -> int:
+    """The kernels one call of ``fn()`` launches: the call captured into a
+    CUDA graph (torch.cuda.CUDAGraph, after a warm-up call outside it), and
+    the graph's kernel nodes counted through the driver (cuGraphGetNodes,
+    cuGraphNodeGetType). A capture sees every launch on the stream, where
+    torch.profiler late in a long process may record none."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # the graph stays readable after capture
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    torch.cuda.synchronize()
+    return kernels
+
+
 def phase_anchors() -> dict:
     """Kernels A and B held to their plain versions on the card, at the
     blocks path's shapes (phase blocks' genome) and at edge cases."""
@@ -1928,17 +2112,24 @@ def phase_anchors() -> dict:
         res["sampled_anchors"]["by_tile"]["A1_first_cap_below"] = {"cap": small, "n_total": n}
         lib = an.anchors_lib()
         outs = [torch.empty(cap, dtype=torch.int32, device="cuda") for _ in range(3)]
-        counts = torch.empty(an._blocks(16 * W) + 1, dtype=torch.int32, device="cuda")
+        n_total = torch.empty((), dtype=torch.int32, device="cuda")
+        scratch = torch.empty(lib.an_sample_scratch_size(W), dtype=torch.int32, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
 
         def bare_a():
             if lib.an_sampled_anchors(w.data_ptr(), v.data_ptr(), k, W, an._threshold(mod),
                                       cap, *(o.data_ptr() for o in outs),
-                                      counts.data_ptr(), stream) != 0:
+                                      n_total.data_ptr(), scratch.data_ptr(), stream) != 0:
                 raise RuntimeError("an_sampled_anchors launch failed")
+        kernels_a_call = graph_kernel_launches(lambda: an.sampled_anchors(w, v, cap=cap, **kw))
+        if kernels_a_call != 2:
+            raise RuntimeError(f"sampled_anchors launched {kernels_a_call} kernels a call, not 2")
         res["sampled_anchors"].update(
+            kernel_launches_a_call=kernels_a_call,
             ms=time_ms(lambda: an.sampled_anchors(w, v, cap=cap, **kw)),
             device_ms=queued_ms(bare_a),
+            profiler_split_ms={name: device_ms(lambda _x: bare_a(), None, name, required=False)
+                               for name in ("sample_count_kernel", "sample_write_kernel")},
             plain_ms=time_ms(lambda: an.sampled_anchors_plain(w, v, cap=cap, **kw), 3),
             bound_ms=bytes_ms(2 * 4 * n_words + 3 * 4 * cap + 4),
             shape={"tile_bases": tile, "words": n_words, "cap": cap, "mod": mod,
@@ -2005,7 +2196,7 @@ def phase_anchors() -> dict:
                    share_of_bound=row["bound_ms"] / row["device_ms"])
         log(f"anchors {name} " + json.dumps(row))
     log(f"phase anchors ok: sampled_anchors bit-exact on {len(res['sampled_anchors']['by_tile'])} "
-        f"tiles, match_emit on {len(by_case)} cases")
+        f"tiles in 2 kernel launches a call, match_emit on {len(by_case)} cases")
     return res
 
 
@@ -2028,6 +2219,8 @@ def anchor_kernel_entries(res: dict) -> list[dict]:
             **{key: row[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms",
                                          "share_of_bound", "shape")},
+            **{key: row[key] for key in ("kernel_launches_a_call", "profiler_split_ms")
+               if key in row},
         })
     return entries
 

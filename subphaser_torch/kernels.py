@@ -7,8 +7,9 @@ headers, so a build takes seconds). The LTR step's host C++
 ``-march=native``, so its digest also carries the host's CPU features: a
 library built on another host is never loaded. Builds happen at first use,
 into ``_build/`` inside the package (git-ignored); a library's file name
-carries a digest of its source and flags, so an edited source is rebuilt
-and never mixed up with a stale one. Nothing here runs at import time.
+carries a digest of its source, the shared headers (``csrc/*.cuh``) and
+its flags, so an edited source is rebuilt and never mixed up with a stale
+one. Nothing here runs at import time.
 
 A failure of this layer (a build, a load, a launch, or a CUDA fault found
 by :func:`synchronize`) raises :class:`KernelError`, so a caller that
@@ -39,6 +40,7 @@ SOURCES = {
     "ltr_native": os.path.join(PKG_DIR, "csrc", "ltr_native.cpp"),
 }
 HOST_SOURCES = {"ltr_native"}  # g++, not nvcc
+HEADERS = [os.path.join(PKG_DIR, "csrc", "launch_after.cuh")]  # included by CUDA sources
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -103,6 +105,9 @@ def library_path(name: str) -> str:
         key += (" ".join(GXX_FLAGS) + repr(GXX_EXTRA) + _host_isa_tag()).encode()
     else:
         key += " ".join(NVCC_FLAGS).encode()
+        for header in HEADERS:
+            with open(header, "rb") as f:
+                key += f.read()
     digest = hashlib.sha256(key).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 

@@ -4,12 +4,17 @@ Port of the JAX package's ltr/msa.py. The host parts are copies, numpy
 kept as numpy (the Gotoh DP's path depends on the last bit of the profile
 scores, and the Kimura correction is held in float64). The device part is
 :func:`match_counts`, the all-pairs valid and match counts behind the
-Kimura distances: a hand-written CUDA kernel (csrc/tree_counts.cu
-``match_counts_kernel``) with its plain PyTorch version beside it
-(:func:`match_counts_plain`, the JAX function's 21 one-hot products). A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises :class:`~subphaser_torch.kernels.KernelError`.
-``launches["match_counts"]`` counts the calls that launched the kernel.
+Kimura distances: hand-written CUDA kernels (csrc/tree_counts.cu) with its
+plain PyTorch version beside them (:func:`match_counts_plain`, the JAX
+function's 21 one-hot products). A CPU tensor takes the plain version; a
+CUDA tensor launches a kernel or raises
+:class:`~subphaser_torch.kernels.KernelError`. The kernel has two routes,
+picked from the weights' values before the launch
+(:func:`match_counts_route`): ``bits`` (bit planes and popcounts over the
+columns expanded by their integer weights; every call of the trees' path)
+and ``float`` (a float32 add a pair and column, for any other weights).
+``launches["match_counts"]`` counts the calls that launched a kernel,
+``route_launches["match_counts"]`` the same calls by route.
 
 Replaces the reference's external MSA/phylogeny stack — mafft alignment of
 concatenated domain peptides, trimal trimming, FastTree ML with local
@@ -223,6 +228,10 @@ def trim_alignment(aln: np.ndarray, min_residue_frac: float = 0.1,
 # all-pairs valid and match counts: plain PyTorch version and the CUDA kernel
 # ---------------------------------------------------------------------------
 launches = {"match_counts": 0}
+route_launches = {"match_counts": {"bits": 0, "float": 0}}
+# csrc/tree_counts.cu EXPANDED_LIMIT: the bits route takes weights summing below it
+EXPANDED_LIMIT = 1 << 16
+PLANES = 8  # csrc/tree_counts.cu: scratch words a (row, 32 expanded columns)
 _launch_lock = threading.Lock()
 _lib = None
 
@@ -242,6 +251,25 @@ def match_counts_plain(aln: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor
     return V, M
 
 
+def match_counts_route(w: np.ndarray) -> str:
+    """The route of :func:`match_counts` for these (host) weights:
+    ``"bits"`` where every weight is a non-negative integer and their sum
+    is below EXPANDED_LIMIT (so every count is an integer below 2^24, exact
+    in float32), else ``"float"``."""
+    w = np.asarray(w, dtype=np.float64)
+    if not np.isfinite(w).all() or (w < 0).any() or (w != np.floor(w)).any():
+        return "float"
+    return "bits" if w.sum() < EXPANDED_LIMIT else "float"
+
+
+def expansion_index(w: np.ndarray) -> np.ndarray:
+    """The bits route's expanded columns: column c repeated w_c times
+    (int32). ``match_counts_plain(aln[:, idx], ones)`` equals
+    ``match_counts_plain(aln, w)`` for non-negative integer weights."""
+    w = np.asarray(w)
+    return np.repeat(np.arange(w.size, dtype=np.int32), w.astype(np.int64))
+
+
 def tree_counts_lib():
     """csrc/tree_counts.cu (both tree kernels), built at first use."""
     global _lib
@@ -254,9 +282,11 @@ def tree_counts_lib():
             lib = kernels.load("tree_counts")
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.tc_match_counts.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr]
+            lib.tc_match_counts_bits.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, ptr, ptr]
             lib.tc_inter_counts.argtypes = [ptr, i32, ptr, ptr, ctypes.c_longlong, ptr, ptr]
             lib.tc_error_string.argtypes = [i32]
-            lib.tc_match_counts.restype = lib.tc_inter_counts.restype = i32
+            for fn in (lib.tc_match_counts, lib.tc_match_counts_bits, lib.tc_inter_counts):
+                fn.restype = i32
             lib.tc_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
@@ -264,16 +294,17 @@ def tree_counts_lib():
 
 def match_counts(aln: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """All-pairs (V, M) of :func:`match_counts_plain`. A CUDA tensor
-    launches ``match_counts_kernel`` of csrc/tree_counts.cu on the current
-    stream (thread-safe: outputs are allocated a call, the launch count is
+    launches csrc/tree_counts.cu on the current stream (thread-safe:
+    outputs and scratch are allocated a call, the launch counts are
     updated under a lock); a CPU tensor takes the plain version.
 
-    Exactness: the kernel adds each column's weight where the JAX package
-    multiplies one-hot columns, in another order. On the trees' path the
-    weights are integers (ones, or bootstrap counts drawn from a
-    multinomial of L columns), so every partial sum is an integer below
-    2^24 and both give the same float32 values bit for bit. With
-    non-integer weights they may differ in the last bits."""
+    The route is :func:`match_counts_route` of the weights, read from the
+    card once. ``bits`` packs each row's columns,
+    expanded by :func:`expansion_index`, into bit planes and counts pairs
+    by popcounts: integer sums, equal to the JAX package's float32 matmuls
+    bit for bit. ``float`` adds each column's weight in float32 where the
+    matmuls multiply one-hot columns, in another order: with non-integer
+    weights the two may differ in the last bits."""
     if aln.dim() != 2 or aln.dtype != torch.uint8:
         raise ValueError(f"match_counts: the alignment must be (n, L) uint8, got "
                          f"{aln.dtype} {tuple(aln.shape)}")
@@ -291,16 +322,29 @@ def match_counts(aln: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torc
     M = torch.empty((n, n), dtype=torch.float32, device=aln.device)
     if n == 0:
         return V, M
+    wh = w.cpu().numpy()
+    route = match_counts_route(wh)
     lib = tree_counts_lib()
-    a, wc = aln.contiguous(), w.contiguous()
+    a = aln.contiguous()
     with torch.cuda.device(aln.device):
         stream = torch.cuda.current_stream(aln.device).cuda_stream
-        err = lib.tc_match_counts(a.data_ptr(), wc.data_ptr(), n, length, V.data_ptr(),
-                                  M.data_ptr(), stream)
+        if route == "bits":
+            idx = torch.from_numpy(expansion_index(wh)).to(aln.device)
+            words = -(-idx.numel() // 32)
+            planes = torch.empty(n * words * PLANES, dtype=torch.int32, device=aln.device)
+            err = lib.tc_match_counts_bits(a.data_ptr(), n, length, idx.data_ptr(), idx.numel(),
+                                           planes.data_ptr(), V.data_ptr(), M.data_ptr(),
+                                           stream)
+        else:
+            wc = w.contiguous()
+            err = lib.tc_match_counts(a.data_ptr(), wc.data_ptr(), n, length, V.data_ptr(),
+                                      M.data_ptr(), stream)
     if err != 0:
-        raise KernelError("tc_match_counts launch failed: " + lib.tc_error_string(err).decode())
+        raise KernelError(f"tc_match_counts ({route} route) launch failed: "
+                          + lib.tc_error_string(err).decode())
     with _launch_lock:
         launches["match_counts"] += 1
+        route_launches["match_counts"][route] += 1
     return V, M
 
 

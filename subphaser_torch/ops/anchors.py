@@ -54,7 +54,9 @@ def anchors_lib():
             lib = kernels.load("anchors")
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.an_sampled_anchors.argtypes = [ptr, ptr, i32, i32, ctypes.c_ulonglong, i32,
-                                               ptr, ptr, ptr, ptr, ptr]
+                                               ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.an_sample_scratch_size.argtypes = [i32]
+            lib.an_sample_scratch_size.restype = ctypes.c_longlong
             lib.an_match_count.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr]
             lib.an_match_emit.argtypes = [ptr] * 8 + [i32, i32] + [ptr] * 5
             lib.an_error_string.argtypes = [i32]
@@ -78,7 +80,7 @@ def _count_launch(name: str) -> None:
 
 
 def _blocks(n: int) -> int:
-    """Blocks of the kernels' grids: TILE = 256 threads x 8 rounds a block
+    """Blocks of kernel B's grids: TILE = 256 threads x 8 rounds a block
     (csrc/anchors.cu)."""
     return -(-n // 2048)
 
@@ -123,7 +125,8 @@ def sampled_anchors(words, vwords, *, k: int, n_pos_words: int, mod: int, cap: i
     arrays' offset-major order (flat index p * n_pos_words + w for the k-mer
     at base w * 16 + p), which the truncation at ``cap`` follows.
 
-    A CUDA tensor launches kernel A of csrc/anchors.cu; a CPU tensor takes
+    A CUDA tensor launches kernel A of csrc/anchors.cu (a count pass and a
+    write pass, two launches); a CPU tensor takes
     :func:`sampled_anchors_plain`."""
     if words.dtype != torch.int32 or vwords.dtype != torch.int32 or words.dim() != 1:
         raise ValueError("sampled_anchors: words and vwords must be 1-D int32")
@@ -143,17 +146,19 @@ def sampled_anchors(words, vwords, *, k: int, n_pos_words: int, mod: int, cap: i
         raise ValueError("sampled_anchors: a tile holds fewer than 2^31 positions")
     dev = words.device
     out = [torch.empty(cap, dtype=torch.int32, device=dev) for _ in range(3)]
-    counts = torch.empty(_blocks(16 * n_pos_words) + 1, dtype=torch.int32, device=dev)
+    n_total = torch.empty((), dtype=torch.int32, device=dev)
     lib = anchors_lib()
+    scratch = torch.empty(lib.an_sample_scratch_size(n_pos_words), dtype=torch.int32,
+                          device=dev)
     w, v = words.contiguous(), vwords.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.an_sampled_anchors(w.data_ptr(), v.data_ptr(), k, n_pos_words,
                                      _threshold(mod), cap, *(o.data_ptr() for o in out),
-                                     counts.data_ptr(), stream)
+                                     n_total.data_ptr(), scratch.data_ptr(), stream)
     _check(lib, err, "an_sampled_anchors")
     _count_launch("sampled_anchors")
-    return out[0], out[1], out[2], counts[-1]
+    return out[0], out[1], out[2], n_total
 
 
 def _tile_words(chrom: PackedChromosome, start: int, n_words: int):

@@ -229,13 +229,38 @@ def test_cuda_sampled_anchors_matches_plain(start, cap):
     words, vwords = _tile(g.chrom("a"), start, 15)
     kw = dict(k=15, n_pos_words=TILE // 16, mod=16, cap=cap)
     before = ta.launches["sampled_anchors"]
+    entry = ta.entry_launches["an_sampled_anchors"]
     got = ta.sampled_anchors(torch.from_numpy(words).cuda(), torch.from_numpy(vwords).cuda(),
                              **kw)
     torch.cuda.synchronize()
     want = ta.sampled_anchors_plain(torch.from_numpy(words), torch.from_numpy(vwords), **kw)
     assert ta.launches["sampled_anchors"] == before + 1
+    assert ta.entry_launches["an_sampled_anchors"] == entry + 1
     for w, x in zip(want, got):
         assert torch.equal(w, x.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,mod,cap", [(5000, 16, 1 << 14), (5000, 16, 100),
+                                       (1 << 19, 16, 1 << 20), ((1 << 20) + 3, 4, 1 << 22),
+                                       ((1 << 21) + 5, 1, 1 << 24)])
+def test_cuda_sampled_anchors_random_tiles(W, mod, cap):
+    """Kernel A on random tiles of one block, of several, of the path's
+    2^19 words (512 blocks) and of more than A_MAX_BLOCKS runs of 4 rounds
+    (17 rounds a block at 2^21 words: the counters are emptied mid-run, and
+    mod 1 takes every valid k-mer); caps above the count and below a
+    block's first slot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(W)
+    words = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, W + 1).astype(np.int32))
+    vwords = torch.from_numpy((rng.random(W + 1) < 0.99).astype(np.int32) * 0xFFFF)
+    kw = dict(k=15, n_pos_words=W, mod=mod, cap=cap)
+    got = ta.sampled_anchors(words.cuda(), vwords.cuda(), **kw)
+    want = ta.sampled_anchors_plain(words.cuda(), vwords.cuda(), **kw)
+    torch.cuda.synchronize()
+    for w, x in zip(want, got):
+        assert torch.equal(w, x)
 
 
 @pytest.mark.cuda

@@ -3,18 +3,26 @@
 
 The kernels run only on the card. What is checked here is a numpy
 transcription of their indexing, with the constants read from the .cu:
-kernel A's per-element code, strand and hash sample at flat index
-f = p * W + w, its grid of TILE flat indices a block walked in ROUNDS
-rounds of THREADS, the block counts, scan_kernel's chunked exclusive scan
-(one block, a serial chunk a thread, Hillis-Steele over the threads), the
-write pass's rank (the block's offset, the counts of the warps before, the
-ballot's prefix popcount below the lane), the cap and the pads; kernel B's
-kept run lengths, the same grid and scan, and the emit pass's rows (a warp
-inclusive scan by shuffles and the warp totals). Each transcription is held
-exact to the plain versions (``sampled_anchors_plain``,
-``match_emit_plain``) at tiles that are not a multiple of a block, caps
-that fall inside a block and on a block's edge; a transcription with one
-index broken must disagree.
+kernel A's per-word arithmetic (``word_takes``: the 16 codes and hash
+samples of a word from the word pair reversed once, the valid starts by
+doubling runs, the 32-bit hash test; ``code_at``: a taken k-mer's code and
+strand), its grid (runs of rounds x A_THREADS words, one word a thread and
+round, at least A_ROUNDS rounds and at most A_MAX_BLOCKS blocks), the
+count pass's (16, blocks) table and take masks, the write pass's own scan
+of that table in offset-major order (a column a thread, each row's sum and
+its sum before the block, a scan of the row sums), its rounds (a ballot
+rank a warp and offset, the warps' counts scanned over the offsets by
+every warp, each offset's run in the staging area, the taken k-mers'
+codes, the copy-out's search for the run of a staged slot), the cap, the
+early return and the pads shared out over the blocks; kernel B's kept run
+lengths, its grid of TILE query anchors a block walked in ROUNDS rounds of
+THREADS, scan_kernel's chunked exclusive scan (one block, a serial chunk a
+thread, Hillis-Steele over the threads), and the emit pass's rows (a warp
+inclusive scan by shuffles and the warp totals). Each transcription is
+held exact to the plain versions (``sampled_anchors_plain``,
+``match_emit_plain``) at tiles of one and of several blocks, the last
+ragged, caps that fall inside a block's runs and below a block's first
+slot; a transcription with one index broken must disagree.
 """
 
 import re
@@ -39,42 +47,40 @@ def _const(name: str) -> int:
 
 
 CONST: dict[str, int] = {}
-for _name in ("THREADS", "WARPS", "ROUNDS", "TILE", "SCAN_THREADS", "SENTINEL", "HASH_MUL"):
+for _name in ("THREADS", "WARPS", "ROUNDS", "TILE", "SCAN_THREADS", "SENTINEL", "HASH_MUL",
+              "OFFSETS", "A_THREADS", "A_WARPS", "A_ROUNDS", "A_MAX_BLOCKS", "STAGE",
+              "NIB_ROUNDS"):
     CONST[_name] = _const(_name)
-THREADS, WARPS, ROUNDS, TILE, SCAN_THREADS, CU_SENTINEL, HASH_MUL = CONST.values()
+(THREADS, WARPS, ROUNDS, TILE, SCAN_THREADS, CU_SENTINEL, HASH_MUL, OFFSETS, A_THREADS, A_WARPS,
+ A_ROUNDS, A_MAX_BLOCKS, STAGE, NIB_ROUNDS) = CONST.values()
 
 
 def test_constants():
     assert CU_SENTINEL == SENTINEL and HASH_MUL == ta.HASH_MUL
     assert WARPS * 32 == THREADS and TILE == THREADS * ROUNDS
-    assert ta._blocks(TILE) == 1 and ta._blocks(TILE + 1) == 2  # the wrapper's grid
+    assert ta._blocks(TILE) == 1 and ta._blocks(TILE + 1) == 2  # kernel B's grid
+    assert OFFSETS == 16 and A_WARPS * 32 == A_THREADS and STAGE == A_THREADS * OFFSETS
+    assert A_THREADS <= 256  # a thread index fits the staged meta's 8 bits
 
 
-def _sample(words, vwords, k: int, W: int, thr: int, f: np.ndarray):
-    """sample_at: (take, code, pos, strand) at flat indices ``f``."""
-    p, w = f // W, f % W
-    w0 = words[w].astype(np.uint32).astype(np.uint64)
-    w1 = words[w + 1].astype(np.uint32).astype(np.uint64)
-    v0 = vwords[w].astype(np.uint32).astype(np.uint64)
-    v1 = vwords[w + 1].astype(np.uint32).astype(np.uint64)
-    pu = p.astype(np.uint64)
-    mask, vmask = np.uint64((1 << (2 * k)) - 1), np.uint64((1 << k) - 1)
-    val = w0 >> (np.uint64(2) * pu)
-    hi = 2 * p + 2 * k > 32
-    val = np.where(hi, val | (w1 << (np.uint64(32) - np.uint64(2) * pu)), val) & mask
-    x = val.astype(np.uint32)
-    x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
-    x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
-    x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
-    fwd = ((x << 16) | (x >> 16)) >> np.uint32(32 - 2 * k)
-    rc = (~val & mask).astype(np.uint32)
-    canon = np.minimum(fwd, rc)
-    valid = (((v0 >> pu) | (v1 << (np.uint64(16) - pu))) & vmask) == vmask
-    code = np.where(valid, canon.astype(np.int64), SENTINEL).astype(np.int32)
-    strand = (valid & (canon != fwd)).astype(np.int32)
-    h = (canon.astype(np.uint64) * np.uint64(HASH_MUL)) & np.uint64(0xFFFFFFFF)
-    take = valid & (h < np.uint64(thr))
-    return take, code, (w * 16 + p).astype(np.int32), strand
+def _grid_a(W: int):
+    """sample_grid: (rounds a block, blocks)."""
+    units = -(-W // A_THREADS)
+    rounds = max(A_ROUNDS, -(-units // A_MAX_BLOCKS))
+    return rounds, -(-units // rounds)
+
+
+@pytest.mark.parametrize("W", [1, 255, 256, 2048, 2049, 5000, 1 << 19, (1 << 20) + 1,
+                               (1 << 27) - 1])
+def test_kernel_a_grid(W):
+    """Runs cover the tile once; past A_MAX_BLOCKS blocks a block takes
+    more rounds; the 2^23-base tile takes 512 blocks of 4 rounds."""
+    rounds, nb = _grid_a(W)
+    run = rounds * A_THREADS
+    assert (nb - 1) * run < W <= nb * run
+    assert rounds >= A_ROUNDS and nb <= A_MAX_BLOCKS
+    if W == 1 << 19:
+        assert (rounds, nb) == (4, 512)
 
 
 def _grid(n: int):
@@ -105,35 +111,180 @@ def _scan(counts: np.ndarray):
     return out, int(sums[-1])
 
 
-def _kernel_a(words, vwords, k, W, mod, cap, broken=False):
-    n, thr = 16 * W, (1 << 32) // mod
-    nb, f = _grid(n)
-    inside = f < n
-    take, code, pos, strand = _sample(words, vwords, k, W, thr, np.where(inside, f, 0))
-    take &= inside
-    offsets, total = _scan(take.sum(axis=(1, 2)))
+U32 = np.uint64(0xFFFFFFFF)
+
+
+def _brev(x):
+    """__brev on 32-bit values held in uint64."""
+    for shift, m in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F), (8, 0x00FF00FF),
+                     (16, 0x0000FFFF)):
+        s, m = np.uint64(shift), np.uint64(m)
+        x = ((x >> s) & m) | ((x & m) << s)
+    return x
+
+
+def _reverse2bits(x):
+    x = _brev(x)
+    m = np.uint64(0x55555555)
+    return ((x >> np.uint64(1)) & m) | ((x & m) << np.uint64(1))
+
+
+def _valid_starts(vv, k: int):
+    """valid_starts: doubling runs, then one overlapping step."""
+    run, length = vv, 1
+    while 2 * length <= k:
+        run = run & (run >> np.uint64(length))
+        length *= 2
+    return run & (run >> np.uint64(k - length)) if length < k else run
+
+
+def _pair(words, vwords, w):
+    u = lambda a: a.view(np.uint32).astype(np.uint64)  # noqa: E731
+    return u(words[w]), u(words[w + 1]), u(vwords[w]), u(vwords[w + 1])
+
+
+def _word_takes(words, vwords, k: int, thr: int, w: np.ndarray):
+    """word_takes at the words ``w``: (16,) + w.shape bools; the hash test
+    as the entry passes it (<= thr - 1 in 32 bits, nothing at thr = 0)."""
+    w0, w1, v0, v1 = _pair(words, vwords, w)
+    mask = np.uint64((1 << (2 * k)) - 1)
+    lim = np.uint64(max(thr - 1, 0))
+    r = (_reverse2bits(w0) << np.uint64(32)) | _reverse2bits(w1)
+    x = r >> np.uint64(34 - 2 * k)
+    pair = w0 | (w1 << np.uint64(32))
+    starts = _valid_starts((v0 | (v1 << np.uint64(16))) & U32, k)
+    take = []
+    for p in range(OFFSETS):
+        val = (pair >> np.uint64(2 * p)) & U32  # __funnelshift_r(w0, w1, 2p)
+        fwd = (x >> np.uint64(30 - 2 * p)) & mask
+        c = np.minimum(fwd, ~val & mask)
+        valid = ((starts >> np.uint64(p)) & np.uint64(1)) == 1
+        take.append(valid & (((c * np.uint64(HASH_MUL)) & U32) <= lim) & (thr > 0))
+    return np.stack(take)
+
+
+def _code_at(words, w: np.ndarray, k: int, p: np.ndarray):
+    """code_at: (canonical code, strand) of the k-mers at offsets ``p`` of
+    the words ``w``, from the pair reversed."""
+    w0, w1, _v0, _v1 = _pair(words, words, w)
+    mask = np.uint64((1 << (2 * k)) - 1)
+    rev = (_reverse2bits(w0) << np.uint64(32)) | _reverse2bits(w1)
+    fwd = (rev >> (np.uint64(64 - 2 * k) - np.uint64(2) * p.astype(np.uint64))) & mask
+    val = ((w0 | (w1 << np.uint64(32))) >> (np.uint64(2) * p.astype(np.uint64))) & U32
+    c = np.minimum(fwd, ~val & mask)
+    return c, (c != fwd).astype(np.int64)
+
+
+def _thread_counts(take: np.ndarray, every: int = NIB_ROUNDS) -> np.ndarray:
+    """sample_count_kernel's counters: take (16, nb, rounds, threads) ->
+    each thread's count at each offset (16, nb, threads), added up in 4-bit
+    fields (nibble q of nib[j] holds offset 4q + j) emptied into the
+    counters every ``every`` rounds and at the end; a field keeps 4 bits."""
+    bits = (take.astype(np.uint32) << np.arange(OFFSETS, dtype=np.uint32)[:, None, None, None])
+    masks = bits.sum(axis=0, dtype=np.uint64).astype(np.uint32)  # (nb, rounds, threads)
+    nb, rounds, threads = masks.shape
+    cnt = np.zeros((OFFSETS, nb, threads), np.int64)
+    nib = np.zeros((4, nb, threads), np.uint32)
+
+    def flush():
+        for p in range(OFFSETS):
+            cnt[p] += (nib[p & 3] >> np.uint32(4 * (p >> 2))) & np.uint32(15)
+        nib[:] = 0
+
+    for r in range(rounds):
+        for j in range(4):
+            nib[j] = (nib[j] + ((masks[:, r] >> np.uint32(j)) & np.uint32(0x1111))) & 0xFFFFFFFF
+        if r % every == every - 1:
+            flush()
+    flush()
+    return cnt
+
+
+def test_count_pass_nibbles():
+    """Counters of every offset taken in every round, over more rounds than
+    a nibble holds: the flush every NIB_ROUNDS rounds keeps them exact; a
+    flush one round later overflows a nibble."""
+    take = np.ones((OFFSETS, 2, 40, 3), bool)
+    take[3, 1, 7, 2] = False
+    want = take.sum(axis=2)
+    assert NIB_ROUNDS <= 15
+    assert np.array_equal(_thread_counts(take), want)
+    assert not np.array_equal(_thread_counts(take, NIB_ROUNDS + 1), want)
+
+
+def _table_offsets(table: np.ndarray, b: int, broken: str = ""):
+    """The write pass's scan of the (16, nb) table at block b: each row's
+    sum and the sum of its entries before b (thread t on columns t,
+    t + A_THREADS, ..., then warp reductions), a scan of the row sums over
+    the offsets: (the 16 offsets, the total)."""
+    nb = table.shape[1]
+    col = np.arange(nb)
+    rows, pre = np.zeros(OFFSETS, np.int64), np.zeros(OFFSETS, np.int64)
+    for t in range(A_THREADS):
+        c = col[t::A_THREADS]
+        rows += table[:, c].sum(axis=1)
+        pre += table[:, c[c < b]].sum(axis=1)
+    if broken == "table_block_major":  # the blocks before b first, all offsets
+        return np.cumsum(table[:, b]) - table[:, b] + table[:, :b].sum(), int(rows.sum())
+    return np.cumsum(rows) - rows + pre, int(rows.sum())
+
+
+def _kernel_a(words, vwords, k, W, mod, cap, broken=""):
+    """Both launches of kernel A in numpy."""
+    thr = (1 << 32) // mod
+    rounds, nb = _grid_a(W)
+    b, r, t = np.meshgrid(np.arange(nb), np.arange(rounds), np.arange(A_THREADS), indexing="ij")
+    w = (b * rounds + r) * A_THREADS + t  # (nb, rounds, A_THREADS)
+    inside = w < W
+    take = _word_takes(words, vwords, k, thr, np.where(inside, w, 0)) & inside
+    table = _thread_counts(take).sum(axis=2)  # sample_count_kernel: (16, nb), and the masks
     out_c = np.full(cap, -7, np.int32)
     out_p, out_s = out_c.copy(), out_c.copy()
-    lane = np.arange(THREADS) % 32
-    warp = np.arange(THREADS) // 32
-    for b in range(nb):
-        running = offsets[b]
-        if running >= cap:
+    total = int(table.sum())
+    for blk in range(nb):
+        off, total = _table_offsets(table, blk, broken)
+        if off[0] >= cap:
             continue
-        for r in range(ROUNDS):
-            tk = take[b, r]
-            warp_counts = tk.reshape(WARPS, 32).sum(axis=1)
-            before = np.concatenate([[0], np.cumsum(warp_counts)[:-1]])[warp]
-            below = lane if not broken else lane + 1
-            prefix = np.array([tk[warp[t] * 32: warp[t] * 32 + below[t]].sum()
-                               for t in range(THREADS)])
-            idx = running + before + prefix
-            m = tk & (idx < cap)
-            out_c[idx[m]], out_p[idx[m]], out_s[idx[m]] = (code[b, r][m], pos[b, r][m],
-                                                           strand[b, r][m])
-            running += warp_counts.sum()
-    first = min(total, cap)
-    out_c[first:], out_p[first:], out_s[first:] = SENTINEL, -1, 0
+        done = np.zeros(OFFSETS, np.int64)
+        for rr in range(rounds):
+            tk = take[:, blk, rr]  # (16, A_THREADS)
+            per_warp = tk.reshape(OFFSETS, A_WARPS, 32)
+            wc = per_warp.sum(axis=2)  # popc of each ballot
+            acc = wc.sum(axis=1)
+            rp = np.cumsum(acc) - acc  # every warp's shuffle scan over the offsets
+            base = np.cumsum(wc, axis=1) - wc + rp[:, None]  # rp + the warps before
+            s_out = off + done
+            done += acc
+            rank = np.cumsum(per_warp, axis=2) - per_warp  # popc(ballot & below)
+            if broken == "rank_with_own_lane":
+                rank = rank + 1
+            slot = base[:, np.arange(A_THREADS) // 32] + rank.reshape(OFFSETS, A_THREADS)
+            staged = int(acc.sum())
+            s_code = np.full(STAGE, -1, np.int64)
+            s_meta = np.full(STAGE, -1, np.int64)
+            pp, tt = np.nonzero(tk)  # the taken k-mers' codes, from the words
+            code, strand = _code_at(words, w[blk, rr, tt], k, pp)
+            s_code[slot[pp, tt]] = code
+            s_meta[slot[pp, tt]] = tt | (strand << 8)
+            e = np.arange(staged)
+            p = np.zeros(staged, np.int64)
+            step = OFFSETS // 2
+            while step:
+                nxt = rp[p + step]
+                p = np.where(nxt < e if broken == "run_search_strict" else nxt <= e,
+                             p + step, p)
+                step //= 2
+            o = s_out[p] + e - rp[p]
+            ok = o < cap
+            meta = s_meta[e]
+            out_c[o[ok]] = s_code[e][ok]
+            out_p[o[ok]] = (((blk * rounds + rr) * A_THREADS + (meta & 0xFF)) * OFFSETS + p)[ok]
+            out_s[o[ok]] = (meta >> 8)[ok]
+    for blk in range(nb):  # each block's share of the pads, written after its scan
+        i = np.arange(min(total, cap) + blk * A_THREADS, cap, nb * A_THREADS)[:, None] \
+            + np.arange(A_THREADS)[None, :]
+        i = i[i < cap]
+        out_c[i], out_p[i], out_s[i] = SENTINEL, -1, 0
     return out_c, out_p, out_s, total
 
 
@@ -147,10 +298,13 @@ def _tile(W: int, seed: int, n_frac: float):
 
 
 @pytest.mark.parametrize("W,k,mod,cap,n_frac", [
-    (300, 15, 16, 4096, 0.01),   # 4800 flat indices: 3 blocks, the last ragged
-    (300, 15, 16, 160, 0.01),    # a cap inside the second block
-    (256, 13, 4, 1100, 0.0),     # a cap near the first block's own count
+    (300, 15, 16, 4096, 0.01),   # one block, its run ragged
+    (300, 15, 16, 160, 0.01),    # a cap inside the block's runs
+    (256, 13, 4, 1100, 0.0),     # a cap near the block's count
     (129, 7, 8, 512, 0.3),       # many invalid bases
+    (5000, 15, 16, 1 << 14, 0.01),  # five blocks, the last ragged
+    (5000, 15, 16, 100, 0.01),   # a cap below the later blocks' first slots
+    (4400, 13, 4, 1 << 15, 0.2),  # several blocks at a higher density
 ])
 def test_kernel_a_matches_plain(W, k, mod, cap, n_frac):
     words, vwords = _tile(W, W + k, n_frac)
@@ -162,7 +316,7 @@ def test_kernel_a_matches_plain(W, k, mod, cap, n_frac):
     assert int(want[3]) == got[3]
     if cap == 160:
         assert got[3] > cap
-        broken = _kernel_a(words, vwords, k, W, mod, cap, broken=True)
+        broken = _kernel_a(words, vwords, k, W, mod, cap, broken="rank_with_own_lane")
         assert not np.array_equal(broken[0], got[0])
 
 
@@ -221,3 +375,49 @@ def test_kernel_b_matches_plain(n_q, n_t, n_codes):
     for w, g in zip(want, got):
         assert np.array_equal(w.numpy(), g)
     assert not np.array_equal(_kernel_b(*args, max_occ=8, broken=True), got)
+
+
+@pytest.mark.parametrize("broken", ["table_block_major", "rank_with_own_lane",
+                                    "run_search_strict"])
+def test_kernel_a_with_a_broken_index_disagrees(broken):
+    W, k, mod, cap = 5000, 15, 16, 1 << 14
+    words, vwords = _tile(W, 9, 0.01)
+    got = _kernel_a(words, vwords, k, W, mod, cap, broken)
+    want = ta.sampled_anchors_plain(torch.from_numpy(words), torch.from_numpy(vwords), k=k,
+                                    n_pos_words=W, mod=mod, cap=cap)
+    assert not all(np.array_equal(w.numpy(), g) for w, g in zip(want[:3], got[:3]))
+
+
+@pytest.mark.parametrize("mod", [1, 3, 1 << 33])
+def test_kernel_a_hash_limits(mod):
+    """mod 1 takes every valid start (thr = 2^32, lim = 2^32 - 1); a mod
+    above 2^32 none (thr = 0)."""
+    W, k = 2100, 11
+    words, vwords = _tile(W, 5, 0.05)
+    kw = dict(k=k, n_pos_words=W, mod=mod, cap=1 << 16)
+    want = ta.sampled_anchors_plain(torch.from_numpy(words), torch.from_numpy(vwords), **kw)
+    got = _kernel_a(words, vwords, k, W, mod, 1 << 16)
+    for w, g in zip(want[:3], got[:3]):
+        assert np.array_equal(w.numpy(), g)
+    assert int(want[3]) == got[3] and (got[3] == 0) == (mod > 1 << 32)
+
+
+def test_word_takes_and_code_at_equal_the_codes():
+    """word_takes' and code_at's arithmetic gives ops/kmer's canonical codes
+    and strands at every valid start, for every k."""
+    from subphaser_torch.ops.kmer import forward_codes, kmer_codes
+
+    W = 300
+    words, vwords = _tile(W, 4, 0.02)
+    w = np.broadcast_to(np.arange(W), (OFFSETS, W))
+    p = np.broadcast_to(np.arange(OFFSETS)[:, None], (OFFSETS, W))
+    for k in range(1, 16):
+        take = _word_takes(words, vwords, k, 1 << 32, np.arange(W))
+        canon, strand = _code_at(words, w, k, p)
+        tw, tv = torch.from_numpy(words), torch.from_numpy(vwords)
+        want = kmer_codes(tw, tv, k, W).numpy()  # (16, W)
+        fwd = forward_codes(tw, tv, k, W).numpy()
+        valid = want != SENTINEL
+        assert np.array_equal(take, valid)  # mod 1 takes every valid start
+        assert np.array_equal(canon[valid].astype(np.int64), want[valid])
+        assert np.array_equal(strand[valid], (want != fwd)[valid])

@@ -6,9 +6,13 @@ on the same seeded numpy inputs; the port on the CPU, where
 Tolerance: exact everywhere. The host parts are the same numpy code; the
 counts are float32 sums of integer weights below 2^24, exact in any order;
 the distances are compared as float64 arrays and the trees as strings.
-Tests marked ``cuda`` hold the kernel (csrc/tree_counts.cu) to its plain
-version on the card and skip without one; they import nothing of the JAX
-package (the card's machine has no JAX).
+The float route's tolerance on the card, with fractional weights:
+2 L 2^-24 sum(w), twice the worst-case error of a float32 sum of L
+non-negative terms, as its float32 adds and the matmuls' products sum the
+same terms in other orders. Tests marked ``cuda`` hold
+the kernel (csrc/tree_counts.cu) to its plain version on the card and skip
+without one; they import nothing of the JAX package (the card's machine has
+no JAX).
 """
 
 import numpy as np
@@ -115,6 +119,50 @@ def test_match_counts_plain_matches_jax(jm, aln, case, weights):
     assert tm.launches == before  # the CPU takes the plain version
     assert v.dtype == m.dtype == torch.float32
     assert np.array_equal(v.numpy(), jv) and np.array_equal(m.numpy(), jmat)
+
+
+@pytest.mark.parametrize("case", ["peptides", "gaps"])
+def test_expansion_identity_matches_jax(jm, aln, case):
+    """The bits route's identity: the plain counts of the alignment's
+    columns expanded by integer weights, with unit weights, equal the JAX
+    package's weighted counts, for multinomial (bootstrap) weights."""
+    import jax.numpy as jnp
+
+    a = _case(aln, case)
+    w = _weights(a.shape[1], "multinomial", seed=5)
+    assert (w == 0).any() and (w > 1).any()
+    idx = tm.expansion_index(w)
+    assert idx.dtype == np.int32 and idx.size == int(w.sum())
+    assert np.array_equal(np.bincount(idx, minlength=w.size), w)
+    jv, jmat = (np.asarray(x) for x in jm._match_counts(jnp.asarray(a), jnp.asarray(w)))
+    ex = torch.from_numpy(np.ascontiguousarray(a[:, idx]))
+    v, m = tm.match_counts_plain(ex, torch.ones(idx.size))
+    assert np.array_equal(v.numpy(), jv) and np.array_equal(m.numpy(), jmat)
+
+
+@pytest.mark.parametrize("w,route", [
+    (np.ones(5), "bits"),
+    (np.array([0, 3, 0, 7, 1]), "bits"),           # zeros and counts above 1
+    (np.zeros(4), "bits"),                          # no column at all
+    (np.array([1.0, -1.0, 2.0]), "float"),          # a negative weight
+    (np.array([1.0, 0.5, 2.0]), "float"),           # a fraction
+    (np.array([1.0, np.nan]), "float"),
+    (np.array([1.0, np.inf]), "float"),
+    (np.array([tm.EXPANDED_LIMIT - 1, 0.0]), "bits"),  # the largest sum it takes
+    (np.array([tm.EXPANDED_LIMIT - 1, 1.0]), "float"),  # a sum at the limit
+    (np.full(3, float(1 << 24)), "float"),
+])
+def test_match_counts_route(w, route):
+    assert tm.match_counts_route(np.asarray(w, np.float32)) == route
+
+
+def test_match_counts_routes_on_the_trees_path():
+    """Every weight set of nj_with_support's draw takes the bits route."""
+    L = 628
+    rng = np.random.default_rng(0)
+    sets = rng.multinomial(L, np.full(L, 1.0 / L), size=100).astype(np.float32)
+    assert tm.match_counts_route(np.ones(L, np.float32)) == "bits"
+    assert all(tm.match_counts_route(w) == "bits" for w in sets)
 
 
 @pytest.mark.parametrize("weights", ["ones", "multinomial"])
@@ -258,14 +306,28 @@ def test_cuda_match_counts_matches_plain(n, length, weights):
     a[: n // 3, : length // 2] = GAP  # gap-rich rows
     if n > 5:
         a[5] = GAP
-    w = torch.from_numpy(_weights(length, weights)).cuda()
+    a[rng.random((n, length)) < 0.02] = 77  # a byte above 20: a residue matching nothing
+    w_h = _weights(length, weights)
+    w = torch.from_numpy(w_h).cuda()
     ac = torch.from_numpy(a).cuda()
-    before = tm.launches["match_counts"]
-    v, m = tm.match_counts(ac, w)
     pv, pm = tm.match_counts_plain(ac, w)
+    # the bits route
+    before = tm.launches["match_counts"]
+    by_route = dict(tm.route_launches["match_counts"])
+    v, m = tm.match_counts(ac, w)
     torch.cuda.synchronize()
     assert tm.launches["match_counts"] == before + 1
+    assert tm.route_launches["match_counts"] == dict(by_route, bits=by_route["bits"] + 1)
     assert torch.equal(v, pv) and torch.equal(m, pm)
+    # the float route, with fractional weights: within 2 L 2^-24 sum(w)
+    wf = w * 0.7 + 0.1  # not multiples of a power of 2: the float32 sums round
+    before = dict(tm.route_launches["match_counts"])
+    v, m = tm.match_counts(ac, wf)
+    fv, fm = tm.match_counts_plain(ac, wf)
+    torch.cuda.synchronize()
+    assert tm.route_launches["match_counts"] == dict(before, float=before["float"] + 1)
+    tol = 2 * length * 2.0 ** -24 * float(wf.sum())
+    assert float((v - fv).abs().max()) <= tol and float((m - fm).abs().max()) <= tol
 
 
 @pytest.mark.cuda
@@ -278,6 +340,7 @@ def test_cuda_kimura_from_threads(aln):
 
     names = [f"e{i}" for i in range(aln.shape[0])]
     before = tm.launches["match_counts"]
+    bits = tm.route_launches["match_counts"]["bits"]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -285,4 +348,5 @@ def test_cuda_kimura_from_threads(aln):
     finally:
         sys.setswitchinterval(interval)
     assert tm.launches["match_counts"] == before + 101  # no update lost
+    assert tm.route_launches["match_counts"]["bits"] == bits + 101  # every call took bits
     assert got == tm.nj_with_support(aln, names, n_boot=100, device="cpu")
