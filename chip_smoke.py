@@ -130,12 +130,15 @@ Phases, each printing one line; any failure raises and exits non-zero:
             counts + 0.1) within 2 L 2^-24 sum(w) of its plain version (the
             worst-case error of float32 sums of L non-negative terms, taken
             in another order on each side), also through kimura_distances
-            (card against CPU within 1e-3); inter_counts bit-exact against
-            its plain version on the
-            sketches of the first 1000 enriched LTRs' whole elements, all
-            pairs, with mash_distances' matrices equal on card and CPU; both
-            at edge shapes (n = 1, 63, 65; L = 1 and odd; sketches shorter
-            than 256; an empty sketch). Prints kernel ms (one wrapper call,
+            (card against CPU within 1e-3); inter_counts (a warp merge of
+            each pair's rows, one launch a call) bit-exact against its plain
+            version on the sketches of the first 1000 enriched LTRs' whole
+            elements, all pairs, with mash_distances' matrices equal on card
+            and CPU, and mash_distances' card time and host waits there
+            (torch.profiler: its device events, and its synchronising calls
+            and copies on the host); both at edge shapes (n = 1, 63, 65; L =
+            1 and odd; sketches of 1 and of 37 values, 1536-wide rows; an
+            empty sketch). Prints kernel ms (one wrapper call,
             CUDA events, median after a warm-up), device ms (the bare
             kernel launched back to back behind a spin of the card, between
             CUDA events; and by torch.profiler where it records the
@@ -179,7 +182,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
             genome's spectra (every occurrence counted) in phase main's
             -min_freq window, whole and halved (the meshes (2, 1) and
             (2, 2)); each kernel's wrapper, device
-            (queued) and plain ms and its bound; (2) sharded_spectrum of A1
+            (queued) and plain ms and its bound, and candidate_counts'
+            kernels a call (a call captured into a CUDA graph: 2, the
+            segments and the counts) with their split by torch.profiler; (2) sharded_spectrum of A1
             on meshes of 2 and 4 shards of cuda:0 (counts reset before and
             read after): after >= lower_count, phase main's A1 spectrum;
             (3) build_phase_step on meshes (2, 1) and (2, 2) of cuda:0 over
@@ -1448,6 +1453,7 @@ def check_inter_counts(pad_h, sizes, timed: bool) -> dict:
     import numpy as np
     import torch
 
+    from subphaser_torch import kernels
     from subphaser_torch.ltr import tree
 
     n, s = pad_h.shape
@@ -1457,7 +1463,8 @@ def check_inter_counts(pad_h, sizes, timed: bool) -> dict:
     for lo in range(0, ai.numel(), tree.PAIR_CHUNK):
         a, b = ai[lo:lo + tree.PAIR_CHUNK], bi[lo:lo + tree.PAIR_CHUNK]
         before = tree.launches["inter_counts"]
-        got, want = tree.inter_counts(pad, a, b), tree.inter_counts_plain(pad, a, b)
+        got = tree.inter_counts(pad, a, b, checked=True)
+        want = tree.inter_counts_plain(pad, a, b)
         torch.cuda.synchronize()
         if tree.launches["inter_counts"] != before + 1 or not torch.equal(got, want):
             raise RuntimeError(f"inter_counts disagrees with its plain version at n={n} s={s}")
@@ -1474,16 +1481,86 @@ def check_inter_counts(pad_h, sizes, timed: bool) -> dict:
         out = torch.empty(a.numel(), dtype=torch.int32, device="cuda")
         row.update(
             timed_pairs=int(a.numel()),
-            ms=time_ms(lambda: tree.inter_counts(pad, a, b)),
+            # the path's call (mash_distances' indices, checked on the host),
+            # and a call whose index check reads back from the card
+            ms=time_ms(lambda: tree.inter_counts(pad, a, b, checked=True)),
+            ms_index_check_on_card=time_ms(lambda: tree.inter_counts(pad, a, b)),
+            kernel_launches_a_call=kernels.graph_kernel_launches(
+                lambda: tree.inter_counts(pad, a, b, checked=True)),
             device_ms=queued_ms(bare_launch("tc_inter_counts", pad, s, a, b, a.numel(), out)),
-            profiler_ms=device_ms(lambda _x: tree.inter_counts(pad, a, b), None,
+            profiler_ms=device_ms(lambda _x: tree.inter_counts(pad, a, b, checked=True), None,
                                   "inter_counts_kernel", required=False),
             plain_ms=time_ms(lambda: tree.inter_counts_plain(pad, a, b), 3),
             library_ms=None,
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        if row["kernel_launches_a_call"] != 1:
+            raise RuntimeError(f"inter_counts launched {row['kernel_launches_a_call']} kernels "
+                               f"a call, not 1")
     return row
+
+
+def mash_waits(sketches) -> dict:
+    """mash_distances on the card at the sketches' size (after a warm-up
+    call): its wall seconds alone; its inter_counts launches' device time
+    by CUDA events around each launch; then under torch.profiler its device
+    time (every device event: kernels, copies, fills; None where the
+    profiler recorded none) with inter_counts' part, and its host waits:
+    the synchronising calls (stream, device and event synchronize) and the
+    host-device copies, with their host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from subphaser_torch.ltr import msa, tree
+
+    tree.mash_distances(sketches, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree.mash_distances(sketches, device="cuda")
+    wall = time.perf_counter() - t0
+    # CUDA events around each launch of the C entry (its span also holds the
+    # launch's own latency: an upper bound of the kernels' device time)
+    lib = msa.tree_counts_lib()
+    entry, spans = lib.tc_inter_counts, []
+
+    def timed(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        err = entry(*args)
+        b.record()
+        spans.append((a, b))
+        return err
+    lib.tc_inter_counts = timed
+    try:
+        tree.mash_distances(sketches, device="cuda")
+    finally:
+        lib.tc_inter_counts = entry
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tree.mash_distances(sketches, device="cuda")
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    syncs = [e for e in events if e.device_type == DeviceType.CPU and e.name in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")]
+    copies = [e for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("cudaMemcpy")]
+    if not dev:
+        log("the profiler recorded no device event of mash_distances")
+    return {"sketches": len(sketches), "wall_s": round(wall, 4),
+            "inter_counts_launches_by_events": len(spans),
+            "inter_counts_event_ms": sum(a.elapsed_time(b) for a, b in spans),
+            "card_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3 if dev else None,
+            "inter_counts_kernel_ms": sum(e.time_range.elapsed_us() for e in dev
+                                          if "inter_counts_kernel" in e.name) / 1e3
+            if dev else None,
+            "inter_counts_launches": sum(1 for e in dev if "inter_counts_kernel" in e.name)
+            if dev else None,
+            "host_syncs": len(syncs),
+            "host_sync_ms": sum(e.time_range.elapsed_us() for e in syncs) / 1e3,
+            "host_copies": len(copies),
+            "host_copy_ms": sum(e.time_range.elapsed_us() for e in copies) / 1e3}
 
 
 def tree_split(pipe, group: str, aln) -> dict:
@@ -1600,12 +1677,22 @@ def phase_trees() -> dict:
     if not np.array_equal(tree.mash_distances(sketches, device="cuda"),
                           tree.mash_distances(sketches, device="cpu")):
         raise RuntimeError("mash_distances differ between cuda and cpu")
+    row["mash_distances"] = mash_waits(sketches)
     edges = {}
-    short = [x[:37] for x in sketches[:65]]
-    short[3] = short[3][:0]  # an empty sketch
-    for n in (2, 63, 65):
-        p_h, sz = tree.pad_sketches(short[:n])
-        edges[f"n={n} s={p_h.shape[1]}"] = check_inter_counts(p_h, sz, False)["max_abs_err"]
+    for width in (37, 1):
+        short = [x[:width] for x in sketches[:65]]
+        short[3] = short[3][:0]  # an empty sketch
+        for n in (2, 63, 65):
+            p_h, sz = tree.pad_sketches(short[:n])
+            edges[f"n={n} s={p_h.shape[1]}"] = check_inter_counts(p_h, sz, False)["max_abs_err"]
+    wide = np.full((40, 1536), np.iinfo(np.int32).max, np.int32)  # 1536-wide rows
+    rng = np.random.default_rng(1536)
+    pool = np.unique(rng.integers(0, 2**31 - 1, size=4608)).astype(np.int32)
+    for i in range(1, wide.shape[0]):  # row 0 all padding
+        v = np.sort(rng.choice(pool, size=int(rng.integers(1, 1537)), replace=False))
+        wide[i, :v.size] = v
+    edges["n=40 s=1536"] = check_inter_counts(wide, (wide != wide.max()).sum(1), False)[
+        "max_abs_err"]
     res["inter_counts"] = dict(row, edges=edges,
                                max_abs_err=max([row["max_abs_err"]] + list(edges.values())))
     log(f"trees inter_counts {json.dumps(res['inter_counts'])}")
@@ -1614,7 +1701,8 @@ def phase_trees() -> dict:
     log(f"phase trees ok: the sketch route at {leaves} leaves; match_counts bit-exact at "
         f"n={aln.shape[0]} L={aln.shape[1]} ({group}) and 6 edge shapes by the bits route, "
         f"within {frac['tolerance']:.3g} by the float route; inter_counts "
-        f"bit-exact over {row['pairs']} pairs and 3 edge shapes; mash_distances equal")
+        f"bit-exact over {row['pairs']} pairs and {len(edges)} edge shapes; mash_distances "
+        f"equal")
     return res
 
 
@@ -1961,6 +2049,9 @@ def tree_kernel_entries(res: dict) -> list[dict]:
             entry["launches_by_path"] = dict(row["path_launches"], ltr=res["ltr"][
                 "launches_by_route"]["match_counts"]["float"])
             entry["launches"] = row["path_launches"]["trees_kimura_distances_fractional"]
+        if name == "inter_counts":
+            entry.update({key: row[key] for key in ("ms_index_check_on_card",
+                                                    "kernel_launches_a_call", "mash_distances")})
         if name == "match_counts":
             entry.update({key: row[key] for key in ("bytes_bound_ms", "popcount_bound_ms",
                                                     "profiler_split_ms", "expanded_columns")})
@@ -2036,46 +2127,13 @@ def bytes_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def graph_kernel_launches(fn) -> int:
-    """The kernels one call of ``fn()`` launches: the call captured into a
-    CUDA graph (torch.cuda.CUDAGraph, after a warm-up call outside it), and
-    the graph's kernel nodes counted through the driver (cuGraphGetNodes,
-    cuGraphNodeGetType). A capture sees every launch on the stream, where
-    torch.profiler late in a long process may record none."""
-    import ctypes
-
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)  # the graph stays readable after capture
-    with torch.cuda.graph(graph):
-        fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    count = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * count.value)()
-    if count.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kernels = 0
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    del graph
-    torch.cuda.synchronize()
-    return kernels
-
-
 def phase_anchors() -> dict:
     """Kernels A and B held to their plain versions on the card, at the
     blocks path's shapes (phase blocks' genome) and at edge cases."""
     import numpy as np
     import torch
 
+    from subphaser_torch import kernels
     from subphaser_torch.io.genome import tile_words_for
     from subphaser_torch.ops import anchors as an
 
@@ -2121,7 +2179,8 @@ def phase_anchors() -> dict:
                                       cap, *(o.data_ptr() for o in outs),
                                       n_total.data_ptr(), scratch.data_ptr(), stream) != 0:
                 raise RuntimeError("an_sampled_anchors launch failed")
-        kernels_a_call = graph_kernel_launches(lambda: an.sampled_anchors(w, v, cap=cap, **kw))
+        kernels_a_call = kernels.graph_kernel_launches(
+            lambda: an.sampled_anchors(w, v, cap=cap, **kw))
         if kernels_a_call != 2:
             raise RuntimeError(f"sampled_anchors launched {kernels_a_call} kernels a call, not 2")
         res["sampled_anchors"].update(
@@ -2309,6 +2368,7 @@ def check_candidate_counts(ucodes, ucounts, tile_chrom, cand, n_chrom: int,
 
     import torch
 
+    from subphaser_torch import kernels
     from subphaser_torch.ops.kmer import SENTINEL
     from subphaser_torch.parallel import phase_step as ps
     from subphaser_torch.parallel import sharded_count as sc
@@ -2325,6 +2385,10 @@ def check_candidate_counts(ucodes, ucounts, tile_chrom, cand, n_chrom: int,
     want = plain()
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
+    kernels_a_call = kernels.graph_kernel_launches(
+        lambda: ps.candidate_counts(ucodes, ucounts, tile_chrom, cand, n_chrom))
+    if kernels_a_call != 2:
+        raise RuntimeError(f"candidate_counts launched {kernels_a_call} kernels a call, not 2")
     if err:
         raise RuntimeError(f"candidate_counts differs from its plain version: {err}")
     hits = 0  # (tile, candidate) pairs where the tile holds the candidate
@@ -2335,13 +2399,25 @@ def check_candidate_counts(ucodes, ucounts, tile_chrom, cand, n_chrom: int,
                      & (tile_chrom >= 0)[:, None]).sum())
     live = int((cand != SENTINEL).sum())
     res = {"tiles": t, "n": n, "candidates": cand.numel(), "chromosomes": n_chrom,
-           "max_abs_err": err, "counted": int(got.long().sum()), "hits": hits}
+           "max_abs_err": err, "counted": int(got.long().sum()), "hits": hits,
+           "kernel_launches_a_call": kernels_a_call}
     del got, want
-    out = torch.zeros((cand.numel(), n_chrom), dtype=torch.int32, device="cuda")
+    out = torch.empty((cand.numel(), n_chrom), dtype=torch.int32, device="cuda")
+    scratch = torch.empty(sc.parallel_lib().pl_candidate_counts_scratch(cand.numel(), t),
+                          dtype=torch.int64, device="cuda")
+
+    def bare():
+        sc.launch("pl_candidate_counts", ucodes, ucounts, n, tile_chrom, t, cand, cand.numel(),
+                  n_chrom, scratch, out)
     res["ms"] = time_ms(lambda: ps.candidate_counts(ucodes, ucounts, tile_chrom, cand, n_chrom))
-    res["device_ms"] = queued_ms(lambda: sc.launch(
-        "pl_candidate_counts", ucodes, ucounts, n, tile_chrom, t, cand, cand.numel(), n_chrom,
-        out), calls=5)
+    res["device_ms"] = queued_ms(bare, calls=5)
+    # the segments the count kernel stages (codes and counts), from the
+    # bounds kernel's scratch: about every sector of them holds a hit
+    seg = scratch.view(-1, t, 2)
+    staged = int(((seg[..., 1] - seg[..., 0]) * (tile_chrom >= 0)[None, :]).sum())
+    res.update(segment_entries=staged, segment_bytes_ms=bytes_ms(8 * staged))
+    res["profiler_split_ms"] = {name: device_ms(lambda _x: bare(), None, name, required=False)
+                                for name in ("cc_bounds_kernel", "cc_count_kernel")}
     res["plain_ms"] = time_ms(plain)
     byte_ms = bytes_ms(4 * t * min(n, live) + 4 * hits + 4 * cand.numel() + 4 * t
                        + 4 * cand.numel() * n_chrom)
@@ -2714,6 +2790,8 @@ def parallel_kernel_entries(res: dict) -> list[dict]:
             "max_abs_err": max(r["max_abs_err"] for r in by_shape.values()),
             **{key: lead[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                           "share_of_bound")},
+            **{key: lead[key] for key in ("kernel_launches_a_call", "profiler_split_ms")
+               if key in lead},
             "library_ms": None,
             "by_shape": by_shape,
         })

@@ -77,13 +77,24 @@
 // inter_counts_kernel. Input: sketches (n, s) int32, each row sorted and
 // padded with INT32_MAX, and P pairs of row indices (ai, bi) int64. Output:
 // for each pair the number of values of row ai, other than INT32_MAX, that
-// row bi holds, int32 (what the JAX function computes through
-// searchsorted). One warp a pair: the warp copies row bi into its own slice
-// of shared memory, each lane binary-searches its share of row ai's values
-// in it (lower bound, the position clamped to s - 1, as the JAX search is),
-// and the lanes' counts are summed by a warp reduction. No barrier across
-// warps. What bounds it: operations, the compares of the searches; the
-// sketches are read from L2 (1 MB at n = 1000, s = 256).
+// row bi holds, int32 (what the JAX function computes through searchsorted).
+// One warp takes a run of IC_RUN consecutive pairs; the path's pairs come in
+// triu order, so a run's pairs mostly share ai. The warp stages rows into
+// four slots of its own shared memory (two for a rows, two for b rows) by
+// cp.async copies (16 bytes where the rows are 16-byte aligned),
+// double-buffered: pair k + 1's b row, and its a row where ai changes, are
+// in flight while pair k is counted, and an a row is staged once for the
+// pairs of a run that share it. Each slot ends in INT32_MAX words. The count
+// is a warp merge of the two rows: lane l takes the merged positions
+// [l * per, (l + 1) * per), per = ceil(2s / 32), finds where its range
+// starts in each row by one merge-path search along the diagonal (a value of
+// row a before an equal value of row b), then walks its range with no
+// branch: a value of row a that it takes is in row b exactly when row b's
+// value at the walk's position equals it (the b values before it are the
+// smaller ones: the searchsorted position). The lanes' counts are summed by
+// a warp reduction. No barrier across warps. What bounds it: operations, a
+// merge's compare a value of either row; the sketches are read from L2 (1 MB
+// at n = 1000, s = 256).
 //
 // The entries launch on the caller's stream and return cudaGetLastError()
 // of their launches (0 = launched); tc_error_string names an error.
@@ -102,7 +113,11 @@ constexpr int PAIRS = 4;                        // i-rows (and j-rows) a thread
 constexpr int SIDE = TILE / PAIRS;              // threads along each side: 16
 constexpr int THREADS = SIDE * SIDE;            // 256
 constexpr int PITCH = TILE + 4;                 // bytes of a staged column
-constexpr int IC_WARPS = 8;                     // pairs (warps) a block
+constexpr int IC_WARPS = 8;                     // warps a block, at most
+constexpr int IC_RUN = 4;                       // consecutive pairs a warp
+constexpr int IC_SLOTS = 4;                     // a rows x 2, b rows x 2
+constexpr int IC_MAX_S = 1536;                  // values a sketch, at most
+constexpr int IC_SMEM = 48 * 1024;              // shared memory a block, at most
 // the bits route
 constexpr int EXPANDED_LIMIT = 1 << 16;         // expanded columns Lx < this (scratch 32 B a
                                                 // row and word: 64 MB at n = 1000)
@@ -305,32 +320,104 @@ bit_counts_kernel(const uint32_t* __restrict__ planes, int n, int NW, int T,
     }
 }
 
+// words of a slot of s values: the row, then at least ceil(2s / 32) + 1 words
+// of INT32_MAX (a lane's walk reads past a row's end by at most its length,
+// and once more for the value after its last step), rounded to 16 bytes
+__host__ __device__ __forceinline__ int ic_slot_words(int s) {
+    return (s + (2 * s + 31) / 32 + 1 + 3) & ~3;
+}
+
+// row src (s values) into the slot at dst by the warp's lanes: 16-byte copies
+// where the rows are 16-byte aligned (vec), else 4-byte copies
+__device__ __forceinline__ void ic_stage(int32_t* dst, const int32_t* __restrict__ src, int s,
+                                         bool vec, int lane) {
+    if (vec) {
+        for (int p = 4 * lane; p < s; p += 128) {
+            const unsigned d = (unsigned)__cvta_generic_to_shared(dst + p);
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src + p)
+                         : "memory");
+        }
+    } else {
+        for (int p = lane; p < s; p += 32) {
+            const unsigned d = (unsigned)__cvta_generic_to_shared(dst + p);
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src + p)
+                         : "memory");
+        }
+    }
+}
+
+// the values of a that b holds (a's INT32_MAX excepted), on lane's range of
+// the merge of two slots of s values
+__device__ __forceinline__ int ic_merge_count(const int32_t* a, const int32_t* b, int s,
+                                              int lane) {
+    const int total = 2 * s, per = (total + 31) / 32;
+    const int d0 = min(lane * per, total), d1 = min(d0 + per, total);
+    int lo = max(0, d0 - s), hi = min(d0, s);
+    while (lo < hi) {  // a values among the first d0 of the merge, a before b on ties
+        const int mid = (lo + hi) >> 1;
+        if (a[mid] <= b[d0 - 1 - mid]) lo = mid + 1;
+        else hi = mid;
+    }
+    // The walk, with no branch and one load a step (the value that replaces
+    // the one taken). Past a row's end it reads the slot's INT32_MAX words: a
+    // real value of a then goes before them and finds no equal, and an
+    // INT32_MAX of a counts nothing, so no step needs to know where the rows
+    // end.
+    int i = lo, j = d0 - lo, count = 0;
+    int32_t av = a[i], bv = b[j];
+    for (int d = d0; d < d1; ++d) {
+        const bool take_a = av <= bv;
+        count += (av == bv) & (av != INT32_MAX);
+        i += take_a;
+        j += !take_a;
+        const int32_t x = *(take_a ? a + i : b + j);
+        av = take_a ? x : av;
+        bv = take_a ? bv : x;
+    }
+    return count;
+}
+
 __global__ void __launch_bounds__(IC_WARPS * 32)
 inter_counts_kernel(const int32_t* __restrict__ pad, int s, const int64_t* __restrict__ ai,
-                    const int64_t* __restrict__ bi, int64_t n_pairs, int32_t* __restrict__ out) {
-    extern __shared__ int32_t srow[];  // IC_WARPS rows of s values
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int64_t pair = (int64_t)blockIdx.x * IC_WARPS + warp;
-    if (pair >= n_pairs) return;  // the whole warp: no barrier follows across warps
-    int32_t* b = srow + warp * s;
-    const int32_t* arow = pad + ai[pair] * s;
-    const int32_t* brow = pad + bi[pair] * s;
-    for (int t = lane; t < s; t += 32) b[t] = brow[t];
-    __syncwarp();
-    int count = 0;
-    for (int t = lane; t < s; t += 32) {
-        const int32_t a = arow[t];
-        int lo = 0, hi = s;  // lower bound: the first position with b[pos] >= a
-        while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (b[mid] < a) lo = mid + 1;
-            else hi = mid;
+                    const int64_t* __restrict__ bi, int64_t n_pairs, bool vec,
+                    int32_t* __restrict__ out) {
+    extern __shared__ __align__(16) int32_t ic_slots[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t p0 = ((int64_t)blockIdx.x * (blockDim.x >> 5) + warp) * IC_RUN;
+    if (p0 >= n_pairs) return;  // the whole warp: no barrier follows across warps
+    const int np = (int)min((int64_t)IC_RUN, n_pairs - p0);
+    const int sw = ic_slot_words(s);
+    int32_t* slot = ic_slots + warp * IC_SLOTS * sw;  // a0, a1, b0, b1
+    for (int e = lane; e < IC_SLOTS * (sw - s); e += 32)  // each slot's INT32_MAX words
+        slot[e / (sw - s) * sw + s + e % (sw - s)] = INT32_MAX;
+    // the run's row indices, lane k holding pair k's
+    const int64_t my_a = lane < np ? ai[p0 + lane] : 0, my_b = lane < np ? bi[p0 + lane] : 0;
+    int64_t cur_a = __shfl_sync(0xffffffffu, my_a, 0);
+    ic_stage(slot, pad + cur_a * s, s, vec, lane);
+    ic_stage(slot + 2 * sw, pad + __shfl_sync(0xffffffffu, my_b, 0) * s, s, vec, lane);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    int aslot = 0;
+    for (int k = 0; k < np; ++k) {
+        int next_aslot = aslot;
+        const int64_t next_a = __shfl_sync(0xffffffffu, my_a, min(k + 1, np - 1));
+        const int64_t next_b = __shfl_sync(0xffffffffu, my_b, min(k + 1, np - 1));
+        if (k + 1 < np) {
+            if (next_a != cur_a) {  // a new a row: into the a slot not in use
+                next_aslot = aslot ^ 1;
+                ic_stage(slot + next_aslot * sw, pad + next_a * s, s, vec, lane);
+            }
+            ic_stage(slot + (2 + ((k + 1) & 1)) * sw, pad + next_b * s, s, vec, lane);
         }
-        const int pos = min(lo, s - 1);
-        count += (b[pos] == a) & (a != INT32_MAX);
+        asm volatile("cp.async.commit_group;" ::: "memory");  // empty at the run's end
+        asm volatile("cp.async.wait_group 1;" ::: "memory");  // pair k's rows, this lane's
+        __syncwarp();                                         // and every lane's
+        int count = ic_merge_count(slot + aslot * sw, slot + (2 + (k & 1)) * sw, s, lane);
+        count = __reduce_add_sync(0xffffffffu, count);
+        if (lane == 0) out[p0 + k] = count;
+        __syncwarp();  // pair k's slots are staged again for pair k + 2
+        aslot = next_aslot;
+        cur_a = next_a;
     }
-    count = __reduce_add_sync(0xffffffffu, count);
-    if (lane == 0) out[pair] = count;
 }
 
 }  // namespace
@@ -374,15 +461,18 @@ extern "C" int tc_match_counts(const void* aln, const void* w, int n, int L, voi
 // indices in [0, n) -> out (P,) int32; 1 <= s <= 1536, P >= 1.
 extern "C" int tc_inter_counts(const void* pad, int s, const void* ai, const void* bi,
                                long long n_pairs, void* out, void* stream_p) {
-    if (s < 1 || n_pairs < 1) return (int)cudaErrorInvalidValue;
-    const long long blocks = (n_pairs + IC_WARPS - 1) / IC_WARPS;
+    if (s < 1 || s > IC_MAX_S || n_pairs < 1) return (int)cudaErrorInvalidValue;
+    const int warp_bytes = IC_SLOTS * ic_slot_words(s) * (int)sizeof(int32_t);
+    const int fit = IC_SMEM / warp_bytes;
+    const int warps = fit < IC_WARPS ? fit : IC_WARPS;  // 8 at s 256, 1 at s 1536
+    const long long runs = (n_pairs + IC_RUN - 1) / IC_RUN;
+    const long long blocks = (runs + warps - 1) / warps;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)IC_WARPS * s * sizeof(int32_t);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // s <= 1536
-    inter_counts_kernel<<<(unsigned)blocks, IC_WARPS * 32, smem,
+    const bool vec = s % 4 == 0 && reinterpret_cast<uintptr_t>(pad) % 16 == 0;
+    inter_counts_kernel<<<(unsigned)blocks, warps * 32, (size_t)warps * warp_bytes,
                           static_cast<cudaStream_t>(stream_p)>>>(
         static_cast<const int32_t*>(pad), s, static_cast<const int64_t*>(ai),
-        static_cast<const int64_t*>(bi), (int64_t)n_pairs, static_cast<int32_t*>(out));
+        static_cast<const int64_t*>(bi), (int64_t)n_pairs, vec, static_cast<int32_t*>(out));
     return (int)cudaGetLastError();
 }
 

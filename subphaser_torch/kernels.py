@@ -173,3 +173,35 @@ def load(name: str) -> ctypes.CDLL:
                 raise KernelError(f"cannot load {path}: {e}") from e
             _loaded[name] = lib
     return lib
+
+
+def graph_kernel_launches(fn) -> int:
+    """The kernels one call of ``fn()`` launches: the call captured into a
+    CUDA graph (torch.cuda.CUDAGraph, after a warm-up call outside it), and
+    the graph's kernel nodes counted through the driver (cuGraphGetNodes,
+    cuGraphNodeGetType). A capture sees every launch on the stream, where
+    torch.profiler late in a long process may record none."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # the graph stays readable after capture
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    torch.cuda.synchronize()
+    return kernels

@@ -3,9 +3,9 @@
 Port of the JAX package's ltr/tree.py. The host parts are copies. The
 device part is :func:`inter_counts`, the shared values of pairs of MinHash
 sketches behind the Mash distances: a hand-written CUDA kernel
-(csrc/tree_counts.cu ``inter_counts_kernel``) with its plain PyTorch
-version beside it (:func:`inter_counts_plain`, the JAX function's batched
-searchsorted). A CPU tensor takes the plain version; a CUDA tensor launches
+(csrc/tree_counts.cu ``inter_counts_kernel``, a warp merge of each pair's
+rows) with its plain PyTorch version beside it (:func:`inter_counts_plain`,
+the JAX function's batched searchsorted). A CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises :class:`~subphaser_torch.kernels.KernelError`.
 ``launches["inter_counts"]`` counts the calls that launched the kernel. The
 sketches themselves are ltr/classify.py's ``_sketch`` (one copy in the
@@ -65,13 +65,17 @@ def inter_counts_plain(pad: torch.Tensor, ai: torch.Tensor, bi: torch.Tensor) ->
     return hit.sum(dim=1, dtype=torch.int32)
 
 
-def inter_counts(pad: torch.Tensor, ai: torch.Tensor, bi: torch.Tensor) -> torch.Tensor:
+def inter_counts(pad: torch.Tensor, ai: torch.Tensor, bi: torch.Tensor, *,
+                 checked: bool = False) -> torch.Tensor:
     """Shared values of the sketch pairs (ai[t], bi[t]), as
     :func:`inter_counts_plain`; exact. A CUDA tensor launches
     ``inter_counts_kernel`` of csrc/tree_counts.cu on the current stream
-    (one warp a pair, reading the rows of ``pad`` the indices name; at
-    most 1536 values a sketch); a CPU tensor takes the plain version.
-    Raises ValueError for indices outside [0, n)."""
+    (a warp a run of consecutive pairs, a merge of the two rows of ``pad``
+    the indices name; at most 1536 values a sketch); a CPU tensor takes the
+    plain version. Raises ValueError for indices outside [0, n); on CUDA
+    that check reads the indices' range back from the card, so a caller
+    that built its indices in range on the host passes ``checked=True`` and
+    the call does not wait on the card."""
     if pad.dim() != 2 or pad.dtype != torch.int32:
         raise ValueError(f"inter_counts: sketches must be (n, s) int32, got "
                          f"{pad.dtype} {tuple(pad.shape)}")
@@ -82,17 +86,17 @@ def inter_counts(pad: torch.Tensor, ai: torch.Tensor, bi: torch.Tensor) -> torch
         raise ValueError("inter_counts: all tensors must be on one device")
     if pad.device.type not in ("cpu", "cuda"):
         raise ValueError(f"inter_counts: unsupported device {pad.device}")
-    if ai.numel() and bool(((ai < 0) | (bi < 0) | (ai >= pad.shape[0])
-                            | (bi >= pad.shape[0])).any()):
+    if ai.numel() and (pad.device.type == "cpu" or not checked) \
+            and bool(((ai < 0) | (bi < 0) | (ai >= pad.shape[0]) | (bi >= pad.shape[0])).any()):
         raise ValueError(f"inter_counts: pair indices outside [0, {pad.shape[0]})")
     if pad.device.type == "cpu":
         return inter_counts_plain(pad, ai, bi)
     n_pairs, s = ai.shape[0], pad.shape[1]
     if s > 1536:
         raise ValueError(f"inter_counts: sketches of {s} values; the kernel takes 1536")
-    out = torch.zeros(n_pairs, dtype=torch.int32, device=pad.device)
     if n_pairs == 0 or s == 0:
-        return out
+        return torch.zeros(n_pairs, dtype=torch.int32, device=pad.device)
+    out = torch.empty(n_pairs, dtype=torch.int32, device=pad.device)  # every pair written
     lib = tree_counts_lib()
     p, a, b = pad.contiguous(), ai.contiguous(), bi.contiguous()
     with torch.cuda.device(pad.device):
@@ -125,19 +129,21 @@ def pad_sketches(sketches: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 def mash_distances(sketches: list[np.ndarray], k: int = SKETCH_K, device=None) -> np.ndarray:
     """Pairwise Mash distances from bottom-s sketches; the pairs' shared
     values are counted by :func:`inter_counts` on ``device`` (CUDA unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU), PAIR_CHUNK pairs a call, and read back
+    once."""
     n = len(sketches)
     if n == 0 or max(x.size for x in sketches) == 0:
         return np.zeros((n, n))
     pad, sizes = pad_sketches(sketches)
-    a_idx, b_idx = np.triu_indices(n, 1)
+    a_idx, b_idx = np.triu_indices(n, 1)  # in [0, n) by construction: checked=True below
     dev = resolve_device(device)
     pad_dev = torch.from_numpy(pad).to(dev)
-    counts = np.zeros(a_idx.size, dtype=np.int64)
-    for lo in range(0, a_idx.size, PAIR_CHUNK):
-        ai = torch.from_numpy(a_idx[lo : lo + PAIR_CHUNK]).to(dev)
-        bi = torch.from_numpy(b_idx[lo : lo + PAIR_CHUNK]).to(dev)
-        counts[lo : lo + PAIR_CHUNK] = inter_counts(pad_dev, ai, bi).cpu().numpy()
+    ai_dev, bi_dev = torch.from_numpy(a_idx).to(dev), torch.from_numpy(b_idx).to(dev)
+    parts = [inter_counts(pad_dev, ai_dev[lo : lo + PAIR_CHUNK], bi_dev[lo : lo + PAIR_CHUNK],
+                          checked=True)
+             for lo in range(0, a_idx.size, PAIR_CHUNK)]
+    counts = np.zeros(0, np.int64) if not parts else \
+        torch.cat(parts).cpu().numpy().astype(np.int64)  # one read back a call
 
     dist = np.zeros((n, n))
     for t, (i, j) in enumerate(zip(a_idx, b_idx)):

@@ -22,11 +22,11 @@ cannot give ``jax.random``'s draws, so the step is held to the same
 canonical labels, not to the same streams. Float32 products run with TF32
 off, as everywhere in the port.
 
-:func:`candidate_counts` runs ``candidate_counts_kernel`` of
-csrc/parallel.cu on CUDA tensors and raises
+:func:`candidate_counts` runs ``cc_bounds_kernel`` and ``cc_count_kernel``
+of csrc/parallel.cu on CUDA tensors (two kernels, one C entry) and raises
 :class:`~subphaser_torch.kernels.KernelError` if it cannot; CPU tensors take
 :func:`candidate_counts_plain`. ``launches["candidate_counts"]`` counts the
-wrapper calls that launched it.
+wrapper calls that launched them.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from subphaser_torch.ops.count import sort_rle
 from subphaser_torch.ops.kmeans import canonical_labels
 from subphaser_torch.ops.kmer import SENTINEL, kmer_codes
-from subphaser_torch.parallel.sharded_count import launch
+from subphaser_torch.parallel.sharded_count import launch, parallel_lib
 
 launches = {"candidate_counts": 0}
 _launch_lock = threading.Lock()
@@ -70,8 +70,9 @@ def candidate_counts(ucodes, ucounts, tile_chrom, cand, n_chrom: int):
     int32 counts), each tile's chromosome ((T,) int32; -1 for a padding
     tile), candidates ((B,) int32, SENTINEL for none) -> (B, n_chrom) int32:
     each candidate's count summed over the tiles of each chromosome. A CUDA
-    tensor launches ``candidate_counts_kernel`` (one launch); a CPU tensor
-    takes :func:`candidate_counts_plain`."""
+    tensor launches the two kernels of ``pl_candidate_counts`` (the tiles'
+    segments of each candidate block, then the counts); a CPU tensor takes
+    :func:`candidate_counts_plain`."""
     if any(x.dtype != torch.int32 for x in (ucodes, ucounts, tile_chrom, cand)):
         raise ValueError("candidate_counts: every input must be int32")
     if ucodes.dim() != 2 or ucodes.shape != ucounts.shape or ucodes.shape[1] < 1 \
@@ -88,12 +89,15 @@ def candidate_counts(ucodes, ucounts, tile_chrom, cand, n_chrom: int):
         return candidate_counts_plain(ucodes, ucounts, tile_chrom, cand, n_chrom)
     if dev.type != "cuda":
         raise ValueError(f"candidate_counts: unsupported device {dev}")
-    out = torch.zeros((cand.numel(), n_chrom), dtype=torch.int32, device=dev)
     if cand.numel() == 0 or ucodes.shape[0] == 0:
-        return out
+        return torch.zeros((cand.numel(), n_chrom), dtype=torch.int32, device=dev)
+    out = torch.empty((cand.numel(), n_chrom), dtype=torch.int32, device=dev)  # zeroed there
+    scratch = torch.empty(parallel_lib().pl_candidate_counts_scratch(cand.numel(),
+                                                                     ucodes.shape[0]),
+                          dtype=torch.int64, device=dev)
     launch("pl_candidate_counts", ucodes.contiguous(), ucounts.contiguous(),
            ucodes.shape[1], tile_chrom.contiguous(), ucodes.shape[0], cand.contiguous(),
-           cand.numel(), n_chrom, out)
+           cand.numel(), n_chrom, scratch, out)
     with _launch_lock:
         launches["candidate_counts"] += 1
     return out

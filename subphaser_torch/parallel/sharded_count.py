@@ -57,8 +57,10 @@ def parallel_lib():
             lib.pl_range_slots.argtypes = [ptr, ptr, i64, i32, i64, i32, ptr, ptr, ptr, ptr]
             lib.pl_range_slots.restype = i32
             lib.pl_candidate_counts.argtypes = [ptr, ptr, i64, ptr, i32, ptr, i64, i32, ptr,
-                                                ptr]
+                                                ptr, ptr]
             lib.pl_candidate_counts.restype = i32
+            lib.pl_candidate_counts_scratch.argtypes = [i64, i32]
+            lib.pl_candidate_counts_scratch.restype = i64
             lib.pl_error_string.argtypes = [i32]
             lib.pl_error_string.restype = ctypes.c_char_p
             _lib = lib

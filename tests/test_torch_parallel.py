@@ -163,21 +163,65 @@ def test_candidate_counts_refuses_bad_inputs():
                          np.full((2, 2), 0.5, np.float32), cand.numpy())
 
 
+def _edge(args, edge: str, seed: int):
+    """The kernel inputs of an edge case: every candidate SENTINEL; every
+    tile but one padding; chromosomes that change inside a group of tiles;
+    sorted candidates every 10th code of a row (a block's segment beyond
+    the stage); sorted candidates descending in each run of 4 (a thread's);
+    counts whose sums wrap past 2^31."""
+    codes, counts, chrom, cand = (a.clone() for a in args)
+    rng = np.random.default_rng(seed)
+    if edge == "all_sentinel":
+        cand[:] = SENTINEL
+    elif edge == "padding_tiles":
+        chrom[:] = -1
+        chrom[chrom.numel() // 2] = 0
+    elif edge == "chrom_change":
+        chrom[:] = torch.arange(chrom.numel()) // 3 % (int(chrom.max()) + 1)
+    elif edge == "sparse":
+        real = codes[0][codes[0] != SENTINEL]
+        cand = real[::10][: cand.numel()].contiguous()
+    elif edge == "local_unsorted":  # each thread's candidates descending
+        m = cand.numel() // 4 * 4
+        cand[:m] = cand[:m].reshape(-1, 4).flip(1).reshape(-1).clone()
+    elif edge == "wrap":
+        counts[:] = torch.from_numpy(rng.integers(1 << 29, 1 << 30, size=tuple(counts.shape),
+                                                  dtype=np.int32))
+        chrom[:] = 0
+    return codes, counts, chrom, cand
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tiles,n,n_cand,n_chrom,sorted_cand", [
-    (1, 1, 1, 1, True), (3, 1000, 257, 2, True), (20, 1 << 14, 5000, 5, True),
-    (9, 4096, 3000, 3, False), (70, 2048, 700, 21, True)])
-def test_cuda_candidate_counts_matches_plain(n_tiles, n, n_cand, n_chrom, sorted_cand):
+@pytest.mark.parametrize("n_tiles,n,n_cand,n_chrom,sorted_cand,edge", [
+    (1, 1, 1, 1, True, ""), (3, 1000, 257, 2, True, ""), (20, 1 << 14, 5000, 5, True, ""),
+    (9, 4096, 3000, 3, False, ""), (70, 2048, 700, 21, True, ""),
+    (30, 1 << 18, 20_000, 6, True, ""),                     # the step's shape, cut
+    (11, 4096, 600, 2, True, "all_sentinel"), (19, 4096, 3000, 3, True, "padding_tiles"),
+    (19, 4096, 3000, 3, True, "chrom_change"), (9, 1 << 15, 2000, 2, True, "sparse"),
+    (19, 8192, 1500, 1, True, "wrap"), (7, 4095, 1500, 2, True, ""),  # rows of 4-byte copies
+    (12, 4096, 2500, 3, True, "local_unsorted")])
+def test_cuda_candidate_counts_matches_plain(n_tiles, n, n_cand, n_chrom, sorted_cand, edge):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    args = [a.cuda() for a in _kernel_inputs(n_tiles, n, n_cand, n_chrom, seed=n_tiles,
-                                             sorted_cand=sorted_cand)]
+    args = _kernel_inputs(n_tiles, n, n_cand, n_chrom, seed=n_tiles, sorted_cand=sorted_cand)
+    args = [a.cuda() for a in _edge(args, edge, n_tiles)]
     before = tps.launches["candidate_counts"]
     got = tps.candidate_counts(*args, n_chrom)
     torch.cuda.synchronize()
     assert tps.launches["candidate_counts"] == before + 1
     assert torch.equal(got.cpu(), tps.candidate_counts_plain(*args, n_chrom).cpu())
 
+
+@pytest.mark.cuda
+def test_cuda_candidate_counts_two_kernels_a_call():
+    """A call captured into a CUDA graph holds two kernel launches: the
+    segments (which also zero the output), then the counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from subphaser_torch import kernels
+
+    args = [a.cuda() for a in _kernel_inputs(12, 4096, 1000, 3, seed=4)]
+    assert kernels.graph_kernel_launches(lambda: tps.candidate_counts(*args, 3)) == 2
 
 
 def test_pipeline_eight_shards_same_files_as_one_and_jax(tmp_path):

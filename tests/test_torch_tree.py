@@ -254,6 +254,8 @@ def test_inter_counts_refuses_bad_input():
     for bad in (-1, 3):
         with pytest.raises(ValueError, match="outside"):
             tt.inter_counts(pad, idx, torch.tensor([0, bad]))
+        with pytest.raises(ValueError, match="outside"):  # the host checks on the CPU
+            tt.inter_counts(pad, idx, torch.tensor([0, bad]), checked=True)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -268,13 +270,25 @@ def test_entry_points_default_to_cuda(monkeypatch):
 # the kernel on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,sizes", [(1, (5, 5)), (2, (1, 1)), (63, (1, 40)), (65, (100, 255)),
-                                     (300, (256, 256))])
-def test_cuda_inter_counts_matches_plain(n, sizes):
+@pytest.mark.parametrize("n,sizes,width", [
+    (1, (5, 5), None), (2, (1, 1), None), (63, (1, 40), None), (65, (100, 255), None),
+    (300, (256, 256), None), (40, (1, 1), 1), (50, (1, 37), 37), (12, (900, 1536), 1536)])
+def test_cuda_inter_counts_matches_plain(n, sizes, width):
+    """Widths of the path (256), 1, not a multiple of 32 and the kernel's
+    1536, rows of every real size and an all-padding row."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    sk = _sketches(n, max(n, 2), sizes)
-    pad = torch.from_numpy(_padded(sk)).cuda()
+    if width is None:
+        pad = torch.from_numpy(_padded(_sketches(n, max(n, 2), sizes))).cuda()
+    else:  # sketches wider than the pool: values drawn from the hash space
+        rng = np.random.default_rng(n)
+        pool = np.unique(rng.integers(0, 2**31 - 1, size=3 * width)).astype(np.int32)
+        pad = np.full((n, width), BIG, np.int32)
+        for i in range(n):
+            v = np.sort(rng.choice(pool, size=int(rng.integers(sizes[0], sizes[1] + 1)),
+                                   replace=False))
+            pad[i, :v.size] = v
+        pad = torch.from_numpy(pad).cuda()
     if pad.shape[0] > 2:
         pad[1] = BIG  # an empty sketch
     ai, bi = (torch.from_numpy(x).cuda() for x in np.triu_indices(pad.shape[0], 1))
@@ -284,6 +298,23 @@ def test_cuda_inter_counts_matches_plain(n, sizes):
     torch.cuda.synchronize()
     assert tt.launches["inter_counts"] == before + 1
     assert torch.equal(got, want)
+    assert torch.equal(tt.inter_counts(pad, ai, bi, checked=True), want)
+
+
+@pytest.mark.cuda
+def test_cuda_inter_counts_one_kernel_a_call():
+    """A call captured into a CUDA graph holds one kernel launch; indices
+    outside [0, n) on the card still raise ValueError."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from subphaser_torch import kernels
+
+    pad = torch.from_numpy(_padded(_sketches(7, 100))).cuda()
+    ai, bi = (torch.from_numpy(x).cuda() for x in np.triu_indices(pad.shape[0], 1))
+    assert kernels.graph_kernel_launches(
+        lambda: tt.inter_counts(pad, ai, bi, checked=True)) == 1
+    with pytest.raises(ValueError, match="outside"):
+        tt.inter_counts(pad, ai, bi + 1)
 
 
 @pytest.mark.cuda

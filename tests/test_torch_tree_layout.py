@@ -16,14 +16,16 @@ to coalesced stores with the mirror. Its float route
 only, each writing its mirror), its staging of CHUNK columns of the tile's
 rows column-major into a PITCH-byte row of shared memory, each thread's
 4-byte read of its PAIRS rows and the byte unpack, the ragged last tile and
-chunk (GAP rows, zero weights). ``inter_counts_kernel``'s pair-to-warp map
-and lane split of the sketch (lane l takes values l, l + 32, ...), its
-lower-bound search clamped to s - 1 and the warp's sum. Each transcription
-is held exact to the plain versions (``match_counts_plain``,
-``inter_counts_plain``) at n not a multiple of the tile, L (or the sum of
-the weights) not a multiple of the chunk (or of 32), weights with zeros and
-counts above 1, and s other than 256; a transcription with one index
-broken must disagree.
+chunk (GAP rows, zero weights). ``inter_counts_kernel``'s runs of IC_RUN
+pairs a warp and warps a block by the sketch width, its four slots
+double-buffered (an a row staged once for the pairs of a run that share
+it) and ending in INT32_MAX words, each lane's merge-path search of its
+diagonal and its walk with no bound check, and the warp's sum. Each transcription is held exact to the plain versions
+(``match_counts_plain``, ``inter_counts_plain``) at n not a multiple of the
+tile, L (or the sum of the weights) not a multiple of the chunk (or of 32),
+weights with zeros and counts above 1, s of 1, not a multiple of 32, 256
+and 1536, and all-padding rows; a transcription with one index broken must
+disagree.
 """
 
 import re
@@ -48,9 +50,13 @@ def _const(name: str) -> int:
 
 
 CONST: dict[str, int] = {}
-for _name in ("GAP", "TILE", "CHUNK", "PAIRS", "SIDE", "THREADS", "PITCH", "IC_WARPS"):
+for _name in ("GAP", "TILE", "CHUNK", "PAIRS", "SIDE", "THREADS", "PITCH"):
     CONST[_name] = _const(_name)
-GAP, TILE, CHUNK, PAIRS, SIDE, THREADS, PITCH, IC_WARPS = CONST.values()
+GAP, TILE, CHUNK, PAIRS, SIDE, THREADS, PITCH = CONST.values()
+IC_NAMES = ("IC_WARPS", "IC_RUN", "IC_SLOTS", "IC_MAX_S", "IC_SMEM")
+for _name in IC_NAMES:
+    CONST[_name] = _const(_name)
+IC_WARPS, IC_RUN, IC_SLOTS, IC_MAX_S, IC_SMEM = (CONST[n] for n in IC_NAMES)
 BITS_NAMES = ("EXPANDED_LIMIT", "SPARE", "PLANES", "PACK_WARPS", "BT_TILE", "BT_PAIRS", "BT_SIDE",
               "BT_GROUP", "KGROUPS", "BT_THREADS", "KW", "BT_PITCH", "OUT_PITCH")
 for _name in BITS_NAMES:
@@ -331,34 +337,100 @@ def test_match_counts_schedule_with_a_broken_index_disagrees(broken):
     assert not (np.array_equal(V, pv.numpy()) and np.array_equal(M, pm.numpy()))
 
 
-def inter_counts_emulated(pad: np.ndarray, ai: np.ndarray, bi: np.ndarray,
-                          broken: str = "") -> np.ndarray:
-    """inter_counts_kernel in numpy: block b's warp k takes pair
-    b * IC_WARPS + k; lane l searches values l, l + 32, ... of row ai."""
-    n_pairs, s = ai.size, pad.shape[1]
-    out = np.full(n_pairs, -1, np.int64)
+def _ic_warps(s: int) -> int:
+    """tc_inter_counts: warps a block at sketch width s."""
+    return min(IC_WARPS, IC_SMEM // (IC_SLOTS * ic_slot_words(s) * 4))
+
+
+def ic_slot_words(s: int) -> int:
+    """A slot: the row, then at least ceil(2s / 32) + 1 INT32_MAX words,
+    rounded to 16 bytes."""
+    return (s + (2 * s + 31) // 32 + 1 + 3) & ~3
+
+
+def test_inter_counts_constants():
+    """Every width up to IC_MAX_S gets at least one warp a block within the
+    shared memory; the path's s = 256 gets IC_WARPS; slots start on 16
+    bytes (the 16-byte copies)."""
+    assert _ic_warps(IC_MAX_S) >= 1 and _ic_warps(256) == IC_WARPS
+    for s in (1, 37, 256, IC_MAX_S):
+        assert _ic_warps(s) * IC_SLOTS * ic_slot_words(s) * 4 <= IC_SMEM
+        assert ic_slot_words(s) % 4 == 0
+
+
+def merge_count_emulated(a, b, s: int, lane: int, broken: str = "", reads=None) -> int:
+    """ic_merge_count on one lane: the merge-path search of its first
+    diagonal, then its walk over the slots (rows and INT32_MAX words)."""
+    total = 2 * s
+    per = (total + 31) // 32
+    d0 = min(lane * per, total)
+    d1 = min(d0 + per, total)
+    lo, hi = max(0, d0 - s), min(d0, s)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if a[mid] <= b[d0 - (broken != "merge_start") - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    i, j, count = lo, d0 - lo, 0
     big = np.iinfo(np.int32).max
-    for blk in range(-(-n_pairs // IC_WARPS)):
-        for warp in range(IC_WARPS):
-            pair = blk * IC_WARPS + warp
-            if pair >= n_pairs:
+    av, bv = a[i], b[j]
+    for _d in range(d0, d1):  # no branch, no bound: past a row, INT32_MAX words
+        take_a = av <= bv
+        count += int(av == bv and av != big)
+        i += take_a
+        j += not take_a
+        if reads is not None:
+            reads.append(i if take_a else j)
+        x = a[i] if take_a else b[j]  # the value that replaces the one taken
+        av, bv = (x, bv) if take_a else (av, x)
+    return count
+
+
+def inter_counts_emulated(pad: np.ndarray, ai: np.ndarray, bi: np.ndarray,
+                          broken: str = "", reads=None) -> tuple[np.ndarray, int]:
+    """inter_counts_kernel in numpy: warp w of block blk takes the run of
+    IC_RUN pairs from (blk * warps + w) * IC_RUN; its four slots (a rows in
+    0 and 1, b rows in 2 and 3) are staged as the kernel stages them, pair
+    k + 1's rows before pair k is counted. -> (counts, a rows staged); the
+    slot words the walks read go to ``reads``."""
+    n_pairs, s = ai.size, pad.shape[1]
+    sw, warps = ic_slot_words(s), _ic_warps(s)
+    out = np.full(n_pairs, -1, np.int64)
+    staged_a = 0
+    blocks = -(-(-(-n_pairs // IC_RUN)) // warps)
+    for blk in range(blocks):
+        for warp in range(warps):
+            p0 = (blk * warps + warp) * IC_RUN
+            if p0 >= n_pairs:
                 continue
-            arow, brow = pad[ai[pair]], pad[bi[pair]].copy()  # brow: the warp's shared copy
-            total = 0
-            for lane in range(32):
-                for t in range(lane, s, 32):
-                    a = arow[t]
-                    lo, hi = 0, s
-                    while lo < hi:
-                        mid = (lo + hi) >> 1
-                        if brow[mid] < a if broken != "upper" else brow[mid] <= a:
-                            lo = mid + 1
-                        else:
-                            hi = mid
-                    pos = min(lo, s - 1)
-                    total += int(brow[pos] == a and a != big)
-            out[pair] = total
-    return out
+            n_run = min(IC_RUN, n_pairs - p0)
+            slot = np.full((IC_SLOTS, sw), np.iinfo(np.int32).max, np.int64)
+            slot[:, :s] = -5  # shared memory, unwritten; the INT32_MAX words set first
+
+            def stage(k, row):
+                slot[k, :s] = pad[row]
+
+            cur_a = ai[p0]
+            stage(0, cur_a)
+            stage(2, bi[p0])
+            staged_a += 1
+            aslot = 0
+            for k in range(n_run):
+                next_aslot = aslot
+                if k + 1 < n_run:
+                    next_a = ai[p0 + k + 1]
+                    if next_a != cur_a:
+                        next_aslot = aslot if broken == "a_slot" else aslot ^ 1
+                        stage(next_aslot, next_a)
+                        staged_a += 1
+                    stage(2 + ((k if broken == "b_slot" else k + 1) & 1), bi[p0 + k + 1])
+                    cur_a = next_a
+                a, b = slot[aslot], slot[2 + (k & 1)]
+                out[p0 + k] = sum(merge_count_emulated(a, b, s, lane, broken, reads)
+                                  for lane in range(32))
+                aslot = next_aslot
+    return out, staged_a
 
 
 def _pads(n: int, s: int, seed: int):
@@ -373,18 +445,38 @@ def _pads(n: int, s: int, seed: int):
     return pad, ai, bi
 
 
-@pytest.mark.parametrize("n,s", [(2, 1), (9, 37), (13, 100), (6, 256)])
-def test_inter_counts_lanes_equal_plain(n, s):
+def _plain_counts(pad, ai, bi):
+    return tt.inter_counts_plain(torch.from_numpy(pad), torch.from_numpy(ai),
+                                 torch.from_numpy(bi)).numpy()
+
+
+@pytest.mark.parametrize("n,s", [(2, 1), (9, 37), (13, 100), (6, 256), (4, 1536)])
+def test_inter_counts_merge_equals_plain(n, s):
+    """Widths of 1, not a multiple of 32, the path's 256 and the kernel's
+    1536, with rows of every real size."""
     pad, ai, bi = _pads(n, s, n * s)
-    want = tt.inter_counts_plain(torch.from_numpy(pad), torch.from_numpy(ai),
-                                 torch.from_numpy(bi)).numpy()
-    assert np.array_equal(inter_counts_emulated(pad, ai, bi), want)
+    got, _staged = inter_counts_emulated(pad, ai, bi)
+    assert np.array_equal(got, _plain_counts(pad, ai, bi))
 
 
-def test_inter_counts_upper_bound_search_disagrees():
-    """With an upper-bound search the clamped position misses values at the
-    end of a full row."""
+def test_inter_counts_all_padding_rows_and_runs():
+    """All-padding rows count 0 with any row; in triu order a warp stages
+    an a row once for the pairs of its run that share it; the walks read no
+    word past a slot."""
+    pad, ai, bi = _pads(23, 64, 8)
+    pad[[1, 7]] = np.iinfo(np.int32).max
+    reads = []
+    got, staged = inter_counts_emulated(pad, ai, bi, reads=reads)
+    want = _plain_counts(pad, ai, bi)
+    assert np.array_equal(got, want)
+    assert not want[(ai == 1) | (bi == 1) | (ai == 7) | (bi == 7)].any()
+    runs = -(-ai.size // IC_RUN)
+    assert runs <= staged < ai.size / 2
+    assert max(reads) < ic_slot_words(64)
+
+
+@pytest.mark.parametrize("broken", ["merge_start", "a_slot", "b_slot"])
+def test_inter_counts_schedule_with_a_broken_index_disagrees(broken):
     pad, ai, bi = _pads(13, 100, 5)
-    want = tt.inter_counts_plain(torch.from_numpy(pad), torch.from_numpy(ai),
-                                 torch.from_numpy(bi)).numpy()
-    assert not np.array_equal(inter_counts_emulated(pad, ai, bi, "upper"), want)
+    got, _staged = inter_counts_emulated(pad, ai, bi, broken)
+    assert not np.array_equal(got, _plain_counts(pad, ai, bi))
