@@ -84,9 +84,17 @@ Phases, each printing one line; any failure raises and exits non-zero:
             phase main's .subgenome.bin.count (~48,000 bins x 3 SGs) and on
             it tiled to a 14 Gb wheat's 1.4 M bins, with the launch count
             read around the two calls; the kernel against its plain version
-            on the card (max relative error <= 1e-4 on p > 1e-30, the same
-            decisions at 0.05) and the share of decisions at 0.05 that
-            agree with the host float64 test (reported, not gated); bh_fdr,
+            on the card (bit for bit, NaN where NaN; max relative error <=
+            1e-4 on p > 1e-30, the same decisions at 0.05) and the share of
+            decisions at 0.05 that agree with the host float64 test
+            (reported, not gated); the walks' lengths by a float32 walk of
+            the script's own, to the end and to the stop the kernel's exits
+            allow (max, 99th percentile, total), the bound restated on the
+            terms to the stop beside the one on the terms to the end, the
+            cycles a term costs on one walk's chain (the longest table
+            alone, its walk whole and halved) and the floor the longest
+            walk sets, and the kernels a call launches (a CUDA-graph
+            capture: 2); bh_fdr,
             the t-test, Mann-Whitney and Kruskal on phase main's k-mer
             matrix, card against CPU at the CPU tests' tolerances;
             PhaseCluster.pca on the card against the CPU (scores within
@@ -95,7 +103,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
             device ms (bare launches queued behind a spin), plain ms and
             its bound: three special-function calls a term over the SFU's
             16 a clock an SM, against its float32 operations at 67 TFLOP/s
-            and its bytes; no single PyTorch call computes it;
+            and its bytes, on the terms to the stop (and on the terms to
+            the end beside it); no single PyTorch call computes it;
 7. main_k17 the same genome and options at -k 17: pair codes (int64 keys)
             through counting and the searchsorted mapping path. Same checks,
             and the significant k-mers must be 17 letters of ACGT.
@@ -167,13 +176,17 @@ Phases, each printing one line; any failure raises and exits non-zero:
             must equal the full cap's), and the kernels one call launches
             (a call captured into a CUDA graph, its kernel nodes counted:
             2, the count and the write pass), match_emit (kernel B) on the
-            whole anchor sets of the pair A1-B1, with no run kept, and with
-            every run max_occ long. Prints each kernel's wrapper ms (CUDA
-            events), device ms (bare launches queued behind a spin of the
-            card; kernel A's two passes also by torch.profiler where it
-            records them), plain ms and the bytes bound (inputs read once,
-            outputs written once, at 3.35 TB/s); no single PyTorch call
-            computes either.
+            whole anchor sets of the pair A1-B1, with no run kept, with
+            every run max_occ long, with every kept query in one tile of
+            its scan, below one tile (1,000 queries) and on 2^20 + 12,345
+            random queries at a random keep rate; its two C entries (the
+            scan and the emit) captured into a CUDA graph: 2 kernel nodes.
+            Prints each kernel's wrapper ms (CUDA events), device ms (bare
+            launches queued behind a spin of the card; each kernel's passes
+            also by torch.profiler where it records them), plain ms and the
+            bytes bound (inputs read once, outputs written once, at 3.35
+            TB/s; kernel B's compact list of kept queries printed beside
+            it); no single PyTorch call computes either.
 12. parallel several devices and processes on the one card, on phase main's
             genome: (1) range_slots (csrc/parallel.cu) bit-exact against its
             plain version on chromosome A1's local spectra at D = 2 and 4
@@ -248,7 +261,8 @@ FISHER_OPS_PER_TERM = 21
 PCA_GAP = 1e-3
 STATS_WHEAT_BINS = 1_400_000  # 10 kb bins of a 14 Gb wheat
 STATS_KMERS = 1 << 20  # rows of phase main's k-mer matrix for the t, U and H tests
-STATS_HOST_BUDGET_S = 60.0  # host float64 seconds a matrix of phase stats may take
+STATS_HOST_BUDGET_S = 10.0  # host float64 seconds a matrix of phase stats may take
+STATS_HOST_CHUNK = 250  # rows a chunk of the host float64 sample
 SORT_SIZES = [2, 1 << 10, 1 << 18, 1 << 23, 1 << 27]
 MAIN_SETS, MAIN_CHROM_MB = 2, 80
 CORE_FILES = [".kmer.mat", ".chrom-subgenome.tsv", ".sig.kmer-subgenome.tsv",
@@ -1791,16 +1805,70 @@ def read_bin_counts(path: str):
     return np.array(rows, dtype=np.int64)
 
 
-def fisher_bounds(tables, max_terms: int, int32_rate: dict) -> dict:
+def fisher_walks(tables, max_terms: int, copies: int = 1) -> dict:
+    """How long each table's Fisher walk is, by a float32 walk of this
+    script's own on the card (torch ops on the tables still walking, not
+    the kernel): the terms to the end (an invalid term, a -inf log term or
+    max_terms terms) and to the stop the kernel's exits allow (log_sum >=
+    0; after a term with a ratio <= 1 - 2^-16, a gap log_sum - log_term
+    above (25 - floor(log2 |log_sum|)) ln 2 + 1e-3, or 150 where |log_sum| <
+    2^-100). The max, 99th percentile and total of each, and the table
+    whose stop comes last. Where the tables are ``copies`` equal copies of
+    their first 1 / copies (a tiled count matrix: the margins are the whole
+    matrix's), the first copy is walked and the totals multiplied."""
+    import math
+
+    import torch
+
+    a, b, c, d = (t[:t.numel() // copies] for t in tables)
+    m, n1, k1 = a + b + c + d, a + b, a + c
+    upper, mk = torch.minimum(n1, k1), m - n1 - k1
+
+    def lchoose(x, y):
+        return torch.lgamma(x + 1.0) - torch.lgamma(y + 1.0) - torch.lgamma(x - y + 1.0)
+
+    lp0 = lchoose(n1, a) + lchoose(m - n1, k1 - a) - lchoose(m, k1)
+    n = a.numel()
+    to_end = torch.zeros(n, dtype=torch.int64, device=a.device)
+    to_stop = torch.full((n,), -1, dtype=torch.int64, device=a.device)
+    live = torch.arange(n, device=a.device)
+    s, t = lp0.clone(), lp0.clone()
+    for i in range(max_terms):
+        if live.numel() == 0:
+            break
+        x = a[live] + float(i)
+        ratio = ((n1[live] - x) * (k1[live] - x)) / ((x + 1.0) * (mk[live] + x + 1.0))
+        t_new = t + torch.log(ratio.clamp_min(1e-38))
+        go = (x < upper[live]) & (ratio > 0) & (t_new != -math.inf)
+        live, s, t, ratio, x = live[go], s[go], t_new[go], ratio[go], x[go]
+        s = torch.logaddexp(s, t)
+        to_end[live] = i + 1
+        e = torch.floor(torch.log2(s.abs())).clamp(-1000, 1000)
+        gap = torch.where(e >= -100, (25.0 - e) * math.log(2) + 1e-3, 150.0)
+        stop = (s >= 0) | ((ratio <= 1 - 2.0 ** -16) & (x + 1 > 0) & (s - t > gap))
+        stop &= to_stop[live] < 0
+        to_stop[live[stop]] = i + 1
+    to_stop = torch.where(to_stop < 0, to_end, to_stop)
+
+    def summary(walk):
+        p99 = torch.kthvalue(walk, max(1, math.ceil(0.99 * n))).values
+        return {"max": int(walk.max()), "p99": int(p99), "total": int(walk.sum()) * copies}
+    return {"to_end": summary(to_end), "to_stop": summary(to_stop),
+            "longest_table": int(torch.argmax(to_stop))}
+
+
+def fisher_bounds(tables, max_terms: int, int32_rate: dict, terms: float | None = None) -> dict:
     """fisher_right_tail's bound on these tables: the terms the recurrence
-    runs (min(upper - a, max_terms) a table, 0 where a > upper) at three
-    special-function calls a term over the SFU's 16 a clock an SM at the
-    maximum SM clock, against FISHER_OPS_PER_TERM float32 operations a term
-    at 67 TFLOP/s and 20 bytes a table at 3.35 TB/s; the largest."""
+    runs (``terms``; by default min(upper - a, max_terms) a table, 0 where
+    a > upper) at three special-function calls a term over the SFU's 16 a
+    clock an SM at the maximum SM clock, against FISHER_OPS_PER_TERM
+    float32 operations a term at 67 TFLOP/s and 20 bytes a table at 3.35
+    TB/s; the largest."""
     import torch
 
     a, b, c, _d = (t.double() for t in tables)
-    terms = float(torch.clamp(torch.minimum(a + b, a + c) - a, 0, max_terms).sum())
+    if terms is None:
+        terms = float(torch.clamp(torch.minimum(a + b, a + c) - a, 0, max_terms).sum())
     n = tables[0].numel()
     sfu_per_s = SFU_OPS_PER_CLOCK_PER_SM * int32_rate["sms"] * int32_rate["sm_clock_mhz"] * 1e6
     sfu_ms = 3 * terms / sfu_per_s * 1e3
@@ -1810,6 +1878,44 @@ def fisher_bounds(tables, max_terms: int, int32_rate: dict) -> dict:
     return {"tables": n, "terms": terms, "sfu_ms": sfu_ms, "fp32_ms": fp32_ms,
             "bytes_ms": bytes_bound, "bound_ms": bound,
             "bound_by": "bytes" if bound == bytes_bound else "operations"}
+
+
+def fisher_chain(tables, table: int, walk: int, clock_mhz: float) -> dict:
+    """The cycles a term of one walk costs on the chain: the kernel on the
+    table ``table`` alone, its walk cut at ``walk`` and at half of it
+    (max_terms), queued launches; the difference over the terms between
+    them, at the maximum SM clock. With the longest walk it gives the floor
+    that walk sets: walk x cycles a term."""
+    import torch
+
+    from subphaser_torch.ops import stats
+
+    lib = stats.stats_lib()
+    one = [t[table:table + 1].contiguous() for t in tables]
+    out = torch.empty(1, dtype=torch.float32, device="cuda")
+    scratch = torch.empty(lib.st_fisher_scratch_size(1), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(max_terms):
+        def go():
+            if lib.st_fisher_right_tail(*(t.data_ptr() for t in one), 1, max_terms,
+                                        out.data_ptr(), scratch.data_ptr(), stream) != 0:
+                raise RuntimeError("st_fisher_right_tail launch failed")
+        return go
+    full, half = queued_ms(launch(walk), calls=5), queued_ms(launch(walk // 2), calls=5)
+    cycles = (full - half) / (walk - walk // 2) * clock_mhz * 1e3
+    return {"walk": walk, "walk_ms": full, "half_walk_ms": half, "cycles_per_term": cycles,
+            "chain_floor_ms": walk * cycles / (clock_mhz * 1e3)}
+
+
+def same_bits(x, y) -> bool:
+    """Equal float tensors bit for bit, NaN where the other is NaN."""
+    import torch
+
+    nan = torch.isnan(x)
+    return bool(torch.equal(nan, torch.isnan(y))
+                and torch.equal(torch.where(nan, 0.0, x).view(torch.int32),
+                                torch.where(nan, 0.0, y).view(torch.int32)))
 
 
 def pca_check(cluster, n: int) -> dict:
@@ -1847,7 +1953,7 @@ def pca_check(cluster, n: int) -> dict:
 
 def host_pvals_sample(counts, reps: int, budget_s: float = STATS_HOST_BUDGET_S):
     """stats_host's float64 p-values of np.tile(counts, (reps, 1)) on a
-    seeded random sample of counts' rows, in chunks of 1,000 rows until
+    seeded random sample of counts' rows, in chunks of STATS_HOST_CHUNK rows until
     ``budget_s`` has passed (all rows where they fit): every tile's tables
     are the same, as the margins are the whole matrix's, so a row's tables
     stand for all its copies. (scipy's float64 tail takes far longer a
@@ -1864,7 +1970,7 @@ def host_pvals_sample(counts, reps: int, budget_s: float = STATS_HOST_BUDGET_S):
     done, parts = 0, []
     t0 = time.perf_counter()
     while done < order.size and (not parts or time.perf_counter() - t0 < budget_s):
-        x11 = counts[order[done:done + 1000]]
+        x11 = counts[order[done:done + STATS_HOST_CHUNK]]
         x12 = x11.sum(axis=1, keepdims=True) - x11
         x21u = total[None, :] - x11
         x22 = np.minimum(grand - x21u - x12, stats_host.MAX_INT)
@@ -1888,6 +1994,7 @@ def phase_stats() -> dict:
     import numpy as np
     import torch
 
+    from subphaser_torch import kernels
     from subphaser_torch.ops import stats
 
     pipe = MAIN_RUN.pop("pipe", None)
@@ -1923,14 +2030,23 @@ def phase_stats() -> dict:
         m = w > 1e-30
         rel = float(np.max(np.abs(g[m] - w[m]) / w[m])) if m.any() else 0.0
         if rel > 1e-4 or not np.array_equal(g <= 0.05, w <= 0.05) \
-                or not np.array_equal(np.isnan(g), np.isnan(w)):
+                or not np.array_equal(np.isnan(g), np.isnan(w)) or not same_bits(got, want):
             raise RuntimeError(f"stats {name}: fisher_right_tail disagrees with its plain "
-                               f"version (max rel {rel} on p > 1e-30)")
+                               f"version (max rel {rel} on p > 1e-30, or not bit for bit)")
+        flat = [t.reshape(-1) for t in tables]
+        t0 = time.perf_counter()
+        copies = inputs[name].shape[0] // counts.shape[0]
+        if not np.array_equal(inputs[name][:counts.shape[0]], counts):
+            raise RuntimeError(f"stats {name}: not copies of phase main's bins")
+        walks = fisher_walks(flat, 16384, copies)
+        log(f"stats {name}: walks {json.dumps(walks)} ({time.perf_counter() - t0:.1f} s)")
         out = torch.empty_like(tables[0])
+        scratch = torch.empty(lib.st_fisher_scratch_size(out.numel()), dtype=torch.int32,
+                              device="cuda")
 
         def launch():
             if lib.st_fisher_right_tail(*(t.data_ptr() for t in tables), out.numel(), 16384,
-                                        out.data_ptr(), stream) != 0:
+                                        out.data_ptr(), scratch.data_ptr(), stream) != 0:
                 raise RuntimeError("st_fisher_right_tail launch failed")
         t0 = time.perf_counter()
         rows, host = host_pvals_sample(counts, inputs[name].shape[0] // counts.shape[0])
@@ -1942,8 +2058,15 @@ def phase_stats() -> dict:
             "max_rel_err": rel, "max_abs_err": float(np.nanmax(np.abs(g - w))),
             "ms": time_ms(lambda: stats.fisher_right_tail(*tables)),
             "device_ms": queued_ms(launch, calls=5),
+            "kernel_launches_a_call": kernels.graph_kernel_launches(
+                lambda: stats.fisher_right_tail(*tables)),
             "plain_ms": plain_ms, "library_ms": None,
-            **fisher_bounds(tables, 16384, int32_rate),
+            "walks": walks,
+            # the bound on the terms the stops leave, and on the terms to the end
+            **fisher_bounds(tables, 16384, int32_rate, walks["to_stop"]["total"]),
+            "bound_to_end": fisher_bounds(tables, 16384, int32_rate),
+            "chain": fisher_chain(flat, walks["longest_table"], walks["to_stop"]["max"],
+                                  int32_rate["sm_clock_mhz"]),
             "host_float64_s": host_s,
             "host_float64_tables": int(host.size),
             "decisions_at_005": int((g[rows] <= 0.05).sum()),
@@ -1951,8 +2074,14 @@ def phase_stats() -> dict:
             "share_agreeing_with_host_float64": float(np.mean((g[rows] <= 0.05)
                                                               == (host <= 0.05))),
         }
+        if row["kernel_launches_a_call"] != 2:
+            raise RuntimeError(f"fisher_right_tail launched {row['kernel_launches_a_call']} "
+                               "kernels a call, not 2")
         row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
-        log(f"stats {name}: kernel {row['ms']:.3f} ms, device {row['device_ms']:.3f} ms")
+        row["share_of_chain_floor"] = row["chain"]["chain_floor_ms"] / row["device_ms"]
+        log(f"stats {name}: kernel {row['ms']:.3f} ms, device {row['device_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.4f} ms (to the end {row['bound_to_end']['bound_ms']:.4f}), "
+            f"chain floor {row['chain']['chain_floor_ms']:.4f} ms")
         res[name] = row
     stats.launches["fisher_right_tail"] = 0  # the later phases' paths: read at the end
     t0 = time.perf_counter()
@@ -2204,11 +2333,31 @@ def phase_anchors() -> dict:
     qc8 = torch.randperm(n8, device="cuda").to(torch.int32)
     lo8, hi8 = an._ss_left_right(tc8, qc8)
     pos8 = torch.arange(tc8.numel(), dtype=torch.int32, device="cuda")
+    # every kept run of the pair inside one tile of the scan (2,048 queries)
+    q_tile = torch.arange(qa.c.numel(), device="cuda") // 2048 == 1000
+    # more than 2^20 queries at a random keep rate
+    g = torch.Generator(device="cuda").manual_seed(14)
+    n_r = (1 << 20) + 12345
+    rate = float(torch.rand(1, generator=g, device="cuda")) * 0.5 + 0.05
+    lo_r = torch.randint(0, 1 << 22, (n_r,), generator=g, device="cuda", dtype=torch.int32)
+    run_r = torch.randint(1, 10, (n_r,), generator=g, device="cuda", dtype=torch.int32)
+    run_r *= torch.rand(n_r, generator=g, device="cuda") < rate
+    qc_r = torch.randint(0, 1 << 30, (n_r,), generator=g, device="cuda", dtype=torch.int32)
+    qc_r[torch.rand(n_r, generator=g, device="cuda") < 0.05] = an.SENTINEL
+    t_r = torch.randint(0, 1 << 30, ((1 << 22) + 9,), generator=g, device="cuda",
+                        dtype=torch.int32)
     cases = {
         "pair_A1_B1": (qa.c, q_occ, qa.p, qa.s, tp_s, ts_s, lo, hi),
         "no_kept_run": (qa.c, q_occ, qa.p, qa.s, tp_s, ts_s, lo, lo),
         "all_runs_max_occ": tuple(x.to(torch.int32) for x in (
             qc8, torch.ones_like(qc8), qc8 * 3, qc8 & 1, pos8, pos8 % 3 == 0, lo8, hi8)),
+        "kept_in_one_tile": (qa.c, q_occ, qa.p, qa.s, tp_s, ts_s, lo,
+                             torch.where(q_tile, hi, lo)),
+        "below_one_tile": tuple(x[:1000] for x in (qa.c, q_occ, qa.p, qa.s)) + (tp_s, ts_s)
+        + (lo[:1000], hi[:1000]),
+        "over_2^20_random": (qc_r, torch.randint(1, 10, (n_r,), generator=g, device="cuda",
+                                                 dtype=torch.int32),
+                             qc_r ^ 5, qc_r & 1, t_r, t_r & 1, lo_r, lo_r + run_r),
     }
     for name, args in cases.items():
         got = an.match_emit(*args, max_occ=8)
@@ -2220,33 +2369,56 @@ def phase_anchors() -> dict:
                                               "targets": args[4].numel(),
                                               "pairs": got[0].numel()}
     by_case = res["match_emit"]["by_case"]
-    if by_case["no_kept_run"]["pairs"] != 0 or by_case["all_runs_max_occ"]["pairs"] != 8 * n8:
+    if by_case["no_kept_run"]["pairs"] != 0 or by_case["all_runs_max_occ"]["pairs"] != 8 * n8 \
+            or not 0 < by_case["kept_in_one_tile"]["pairs"] < by_case["pair_A1_B1"]["pairs"] \
+            or by_case["below_one_tile"]["pairs"] == 0:
         raise RuntimeError(f"match_emit edge cases: {by_case}")
+    by_case["over_2^20_random"]["keep_rate"] = rate
     args = tuple(x.contiguous() for x in cases["pair_A1_B1"])
     n_q, n_t = args[0].numel(), args[4].numel()
     n_pairs = by_case["pair_A1_B1"]["pairs"]
     runs = hi - lo
-    n_kept = int(((runs > 0) & (runs <= 8) & (q_occ <= 8) & (qa.c != an.SENTINEL)).sum())
+    keep = (runs > 0) & (runs <= 8) & (q_occ <= 8) & (qa.c != an.SENTINEL)
+    n_kept = int(keep.sum())
+    # the 32-byte sectors the gathers touch: qp and qs at the kept queries,
+    # tp_s and ts_s at each kept run's targets
+    lens = runs[keep].long()
+    t_idx = torch.repeat_interleave(lo[keep].long() - (torch.cumsum(lens, 0) - lens), lens) \
+        + torch.arange(int(lens.sum()), device="cuda")
+    sectors = 2 * torch.unique(torch.nonzero(keep).squeeze(1) // 8).numel() \
+        + 2 * torch.unique(t_idx // 8).numel()
     lib = an.anchors_lib()
     outs = [torch.empty(max(n_pairs, 1), dtype=torch.int32, device="cuda") for _ in range(3)]
-    counts = torch.empty(an._blocks(n_q) + 1, dtype=torch.int32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.empty(lib.an_match_scratch_size(n_q), dtype=torch.int32, device="cuda")
+    totals = torch.empty(2, dtype=torch.int32, device="cuda")
     qc_p, qo_p, qp_p, qs_p, tp_p, ts_p, lo_p, hi_p = (x.data_ptr() for x in args)
 
-    def bare_b():
-        if (lib.an_match_count(qc_p, qo_p, lo_p, hi_p, n_q, 8, counts.data_ptr(), stream)
-                or lib.an_match_emit(qc_p, qo_p, lo_p, hi_p, qp_p, qs_p, tp_p, ts_p, n_q, 8,
-                                     counts.data_ptr(), *(o.data_ptr() for o in outs),
-                                     stream)):
-            raise RuntimeError("an_match_count/an_match_emit launch failed")
+    def bare_b():  # the scan and the emit, without the host's read of the totals
+        stream = torch.cuda.current_stream().cuda_stream  # a graph captures on its own
+        if (lib.an_match_scan(qc_p, qo_p, lo_p, hi_p, qp_p, qs_p, n_q, 8, totals.data_ptr(),
+                              scratch.data_ptr(), stream)
+                or lib.an_match_emit(tp_p, ts_p, n_q, scratch.data_ptr(), n_kept, n_pairs,
+                                     *(o.data_ptr() for o in outs), stream)):
+            raise RuntimeError("an_match_scan/an_match_emit launch failed")
+    kernels_b_call = kernels.graph_kernel_launches(bare_b)
+    if kernels_b_call != 2:
+        raise RuntimeError(f"match_emit's entries launched {kernels_b_call} kernels, not 2")
     res["match_emit"].update(
+        kernel_launches_a_call=kernels_b_call,
         ms=time_ms(lambda: an.match_emit(*args, max_occ=8)),
         device_ms=queued_ms(bare_b),
+        profiler_split_ms={name: device_ms(lambda _x: bare_b(), None, name, required=False)
+                           for name in ("match_scan_kernel", "match_emit_kernel")},
         plain_ms=time_ms(lambda: an.match_emit_plain(*args, max_occ=8), 3),
         # The bytes this pair needs: the four arrays of the keep rule for every
         # query, positions and strands of the kept queries, the two target
         # arrays at the gathered entries only, and three outputs a pair.
         bound_ms=bytes_ms(4 * (4 * n_q + 2 * n_kept + 5 * n_pairs)),
+        # the same with each gather read as the whole 32-byte sectors it touches
+        sector_bound_ms=bytes_ms(4 * 4 * n_q + 32 * sectors + 12 * n_pairs),
+        # beyond them: the compact list of the kept queries (16 B each),
+        # written by the scan and read by the emit
+        compact_list_bytes=16 * n_kept, compact_list_ms=bytes_ms(32 * n_kept),
         shape={"pair": "A1-B1", "queries": n_q, "kept_queries": n_kept, "targets": n_t,
                "pairs": n_pairs})
     for name in ANCHOR_KERNELS:
@@ -2278,7 +2450,9 @@ def anchor_kernel_entries(res: dict) -> list[dict]:
             **{key: row[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms",
                                          "share_of_bound", "shape")},
-            **{key: row[key] for key in ("kernel_launches_a_call", "profiler_split_ms")
+            **{key: row[key] for key in ("kernel_launches_a_call", "profiler_split_ms",
+                                         "compact_list_bytes", "compact_list_ms",
+                                         "sector_bound_ms")
                if key in row},
         })
     return entries
@@ -2309,7 +2483,9 @@ def stats_kernel_entry(res: dict) -> dict:
         "max_abs_err": max(st[n]["max_abs_err"] for n in ("main", "wheat_14gb")),
         **{key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "share_of_bound", "max_rel_err", "shape",
-                                     "terms", "sfu_ms", "fp32_ms", "bytes_ms")},
+                                     "terms", "sfu_ms", "fp32_ms", "bytes_ms", "walks",
+                                     "bound_to_end", "chain", "share_of_chain_floor",
+                                     "kernel_launches_a_call")},
         "wheat_14gb": st["wheat_14gb"],
     }
 

@@ -4,8 +4,8 @@
 // Counterparts of two XLA-lowered device programs of the JAX package:
 //   ops/anchors.py sampled_anchors            -> kernel A (sample_count_kernel,
 //                                                sample_write_kernel)
-//   ops/anchors.py _combine_runs + _match_emit -> kernel B (match_count_kernel,
-//                                                scan_kernel, match_emit_kernel)
+//   ops/anchors.py _combine_runs + _match_emit -> kernel B (match_scan_kernel,
+//                                                match_emit_kernel)
 //
 // Kernel A. Input: one tile of packed bases, words and validity words int32
 // (n_words >= W + 1, W = start words). For every start position it computes
@@ -65,15 +65,53 @@
 // 0 < hi - lo <= max_occ, q_occ <= max_occ and qc != SENTINEL (the rule of
 // _combine_runs); every kept anchor emits one (qpos, tpos, rel) for each
 // target of its run, rel = (qs != ts), in query order and, within a run, in
-// sorted-target order: the csum order of _match_emit. Count pass (kept run
-// length summed a block), the same scan, then the emit pass: a block
-// exclusive scan of the run lengths (warp shuffles and the warp totals)
-// gives each query anchor its first output row. The host reads the total
-// between the scan and the emit pass to size the outputs.
-// What bounds it: bytes. It reads 24 B a query anchor (and lo, hi, qc, q_occ
-// again in the emit pass) and writes 12 B a pair; the target reads are
-// gathers of at most max_occ consecutive entries.
-//
+// sorted-target order: the csum order of _match_emit. Two launches, and the
+// host's read of the totals between them to size the outputs.
+//   match_scan_kernel, one pass over the query side: a block reads its TILE
+//     queries of qc, q_occ, lo and hi once, 16-byte vector loads (VEC
+//     queries a thread and round, ROUNDS rounds, all loads issued first),
+//     and takes each query's kept run length. The scan counts two things at
+//     once, the kept queries and the pairs before each query, packed in one
+//     64-bit word (kept << KEPT_SHIFT | pairs; both stay below 2^31, so
+//     neither field carries into the other). A thread sums its VEC queries
+//     of a round, warps scan the sums by shuffles, and the block's warp
+//     totals, round by round, give each query its prefix inside the block.
+//     Then a single-pass chained scan with decoupled look-back: thread 0
+//     publishes the block's aggregate in its status word (flag
+//     FLAG_AGGREGATE in the top two bits, block 0 FLAG_PREFIX at once); warp
+//     0 reads the status words of the LOOKBACK blocks before it, one a lane,
+//     spinning while any is still 0; it adds the values from the nearest
+//     block up to and including the nearest FLAG_PREFIX word, or all of them
+//     and steps LOOKBACK blocks back when none is; then publishes the
+//     block's inclusive prefix (FLAG_PREFIX). A status word is written and
+//     read whole (relaxed 64-bit accesses), so no fence is needed: it
+//     carries its flag and its value together. The status words are zeroed
+//     by a memset before the launch. Before the look-back each thread stages
+//     its kept queries in shared memory at their place in the block's query
+//     order: lo, the first output row inside the block, and the position
+//     and strand, gathered from qp and qs by asynchronous copies (cp.async)
+//     that are in flight while warp 0 looks back. After it the block writes
+//     its staged queries out, coalesced, behind the kept queries of the
+//     blocks before it: the compact list (k_lo, k_row, k_pos, k_str; 16
+//     bytes a kept query). The last block writes the pair total and the
+//     kept count.
+//   match_emit_kernel reads only the compact list: a warp takes a run of RUN
+//     consecutive kept queries, one a lane, and spreads the run's rows over
+//     its lanes, 32 x EMIT_ROWS consecutive output rows a step (EMIT_ROWS
+//     rows a lane, their gathers in flight together; a run of 32 kept
+//     queries has ~33 rows on the blocks path): a lane finds the query of a
+//     row by a binary search of the run's first rows in the lanes'
+//     registers (shuffles), gathers tp_s and ts_s at lo + (row - first row)
+//     and writes the three outputs, coalesced.
+// What bounds it: bytes, as chip_smoke.py counts them: the four arrays of the
+// keep rule for every query (16 B), the kept queries' positions and strands
+// (8 B each), the gathered targets' positions and strands (8 B a pair) and
+// the three outputs (12 B a pair): 4 x (4 n + 2 n_kept + 5 n_pairs) bytes.
+// Beyond them the compact list is written once and read once (32 B a kept
+// query, ~5% of the queries on the blocks path). The gathers read whole
+// 32-byte sectors: about one a kept query for each of qp and qs, and one or
+// two a kept query for each of tp_s and ts_s, scattered over the target.
+
 // The entry points launch on the caller's stream and return
 // cudaGetLastError() of their launches (0 = launched); an_error_string names
 // an error.
@@ -81,16 +119,25 @@
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <initializer_list>
 
 #include "launch_after.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;                 // kernel B: threads a block (8 warps)
+constexpr int THREADS = 128;                 // kernel B: threads a block (4 warps)
 constexpr int WARPS = THREADS / 32;
-constexpr int ROUNDS = 8;                    // kernel B: rounds a block
-constexpr int TILE = THREADS * ROUNDS;       // kernel B: query anchors a block
-constexpr int SCAN_THREADS = 1024;           // the one block of scan_kernel
+constexpr int VEC = 4;                       // kernel B: queries a 16-byte load (int4)
+constexpr int ROUNDS = 4;                    // kernel B: vector loads a thread and array
+constexpr int TILE = THREADS * VEC * ROUNDS; // kernel B: query anchors a block of the scan
+constexpr int LOOKBACK = 32;                 // status words a look-back step reads, one a lane
+constexpr int KEPT_SHIFT = 31;               // scan word: kept << KEPT_SHIFT | pairs
+constexpr int FLAG_SHIFT = 62;               // status word: flag << FLAG_SHIFT | scan word
+constexpr int FLAG_AGGREGATE = 1;            // the block's own sum
+constexpr int FLAG_PREFIX = 2;               // the sum of every block up to this one
+constexpr int RUN = 32;                      // kernel B: kept queries a warp of the emit
+constexpr int EMIT_ROWS = 2;                 // kernel B: output rows a lane and step of the emit
+static_assert(VEC == 4, "kernel B's scan reads int4 vectors");
 constexpr int32_t SENTINEL = 0x7fffffff;
 constexpr uint32_t HASH_MUL = 2654435761u;
 constexpr int OFFSETS = 16;                  // bases a word: the k-mers starting in it
@@ -355,113 +402,220 @@ sample_write_kernel(const int32_t* __restrict__ words, int k, int W, int rounds,
     }
 }
 
-// Sum of v over the block; the result is valid in thread 0.
-__device__ __forceinline__ int block_sum(int v, int* red) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    int t = 0;
-    if (threadIdx.x == 0)
-        for (int i = 0; i < WARPS; ++i) t += red[i];
-    return t;
+using u64 = unsigned long long;
+constexpr u64 PAIRS_MASK = (1ull << KEPT_SHIFT) - 1;
+constexpr u64 VALUE_MASK = (1ull << FLAG_SHIFT) - 1;
+
+__device__ __forceinline__ u64 load_status(const u64* p) {
+    u64 v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+    return v;
 }
 
-// counts[0, nb) -> their exclusive prefix sums, in place; counts[nb] = total.
-// One block: thread t scans its chunk of ceil(nb / SCAN_THREADS) serially.
-__global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(int32_t* __restrict__ counts, int nb) {
-    __shared__ int sums[SCAN_THREADS];
-    const int chunk = (nb + SCAN_THREADS - 1) / SCAN_THREADS;
-    const int lo = threadIdx.x * chunk, hi = min(lo + chunk, nb);
-    int s = 0;
-    for (int i = lo; i < hi; ++i) s += counts[i];
-    sums[threadIdx.x] = s;
-    __syncthreads();
-    for (int o = 1; o < SCAN_THREADS; o <<= 1) {  // Hillis-Steele, inclusive
-        const int add = threadIdx.x >= o ? sums[threadIdx.x - o] : 0;
-        __syncthreads();
-        sums[threadIdx.x] += add;
-        __syncthreads();
-    }
-    int run = sums[threadIdx.x] - s;
-    for (int i = lo; i < hi; ++i) {
-        const int c = counts[i];
-        counts[i] = run;
-        run += c;
-    }
-    if (threadIdx.x == SCAN_THREADS - 1) counts[nb] = sums[SCAN_THREADS - 1];
+__device__ __forceinline__ void store_status(u64* p, u64 v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// Kept run length of query anchor i (0 when it is dropped).
-__device__ __forceinline__ int kept_run(const int32_t* __restrict__ qc,
-                                        const int32_t* __restrict__ q_occ,
-                                        const int32_t* __restrict__ lo,
-                                        const int32_t* __restrict__ hi, int i, int max_occ) {
-    const int run = hi[i] - lo[i];
-    const bool keep = run > 0 && run <= max_occ && q_occ[i] <= max_occ && qc[i] != SENTINEL;
-    return keep ? run : 0;
+__device__ __forceinline__ int get(const int4& v, int j) {
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(THREADS)
-match_count_kernel(const int32_t* __restrict__ qc, const int32_t* __restrict__ q_occ,
-                   const int32_t* __restrict__ lo, const int32_t* __restrict__ hi, int n,
-                   int max_occ, int32_t* __restrict__ counts) {
-    __shared__ int red[WARPS];
-    const int base = blockIdx.x * TILE + threadIdx.x;
-    int c = 0;
+// VEC entries of x from i, 0 at n and past it.
+__device__ __forceinline__ int4 ragged_load(const int32_t* __restrict__ x, int i, int n) {
+    return make_int4(i < n ? x[i] : 0, i + 1 < n ? x[i + 1] : 0, i + 2 < n ? x[i + 2] : 0,
+                     i + 3 < n ? x[i + 3] : 0);
+}
+
+// The scan word of a query: its kept flag and run length (0 when dropped).
+__device__ __forceinline__ u64 scan_word(int32_t c, int32_t occ, int32_t l, int32_t h,
+                                         int max_occ) {
+    const int run = h - l;
+    const bool keep = run > 0 && run <= max_occ && occ <= max_occ && c != SENTINEL;
+    return keep ? (1ull << KEPT_SHIFT) | (u64)run : 0ull;
+}
+
+__device__ __forceinline__ u64 warp_sum(u64 v) {
 #pragma unroll
-    for (int r = 0; r < ROUNDS; ++r) {
-        const int i = base + r * THREADS;
-        if (i < n) c += kept_run(qc, q_occ, lo, hi, i, max_occ);
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    return v;
+}
+
+// Warp 0 of block b > 0: the sum of the blocks before b (decoupled
+// look-back over their status words); valid in every lane.
+__device__ __forceinline__ u64 look_back(const u64* status, int b, int lane) {
+    u64 before = 0;
+    for (int pos = b - 1;; pos -= LOOKBACK) {
+        const int i = pos - lane;  // lane 0: the nearest block
+        u64 s;
+        while (true) {
+            s = i >= 0 ? load_status(status + i) : (u64)FLAG_PREFIX << FLAG_SHIFT;
+            if (!__any_sync(FULL, (s >> FLAG_SHIFT) == 0)) break;
+            __nanosleep(32);
+        }
+        const unsigned prefix = __ballot_sync(FULL, (s >> FLAG_SHIFT) == FLAG_PREFIX);
+        const int last = prefix ? __ffs(prefix) - 1 : LOOKBACK - 1;  // the lanes to add
+        before += warp_sum(lane <= last ? s & VALUE_MASK : 0ull);
+        if (prefix) return before;
     }
-    c = block_sum(c, red);
-    if (threadIdx.x == 0) counts[blockIdx.x] = c;
+}
+
+// An asynchronous 4-byte copy from device to shared memory (cp.async): the
+// thread goes on while it is in flight.
+__device__ __forceinline__ void copy_async(int32_t* dst, const int32_t* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src)
+                 : "memory");
 }
 
 __global__ void __launch_bounds__(THREADS)
-match_emit_kernel(const int32_t* __restrict__ qc, const int32_t* __restrict__ q_occ,
+match_scan_kernel(const int32_t* __restrict__ qc, const int32_t* __restrict__ q_occ,
                   const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
-                  const int32_t* __restrict__ qp, const int32_t* __restrict__ qs,
-                  const int32_t* __restrict__ tp_s, const int32_t* __restrict__ ts_s, int n,
-                  int max_occ, const int32_t* __restrict__ offsets,
-                  int32_t* __restrict__ out_q, int32_t* __restrict__ out_t,
-                  int32_t* __restrict__ out_r) {
-    __shared__ int warp_totals[WARPS];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int base = blockIdx.x * TILE + threadIdx.x;
-    int running = offsets[blockIdx.x];
+                  const int32_t* __restrict__ qp, const int32_t* __restrict__ qs, int n,
+                  int max_occ, u64* __restrict__ status, int32_t* __restrict__ totals,
+                  int32_t* __restrict__ k_lo, int32_t* __restrict__ k_row,
+                  int32_t* __restrict__ k_pos, int32_t* __restrict__ k_str) {
+    __shared__ u64 s_warp[ROUNDS][WARPS];
+    __shared__ u64 s_before;
+    // the block's kept queries, in query order: lo, first row inside the
+    // block, position, strand
+    __shared__ int32_t s_lo[TILE], s_row[TILE], s_pos[TILE], s_str[TILE];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.x;
+    int4 c[ROUNDS], o[ROUNDS], l[ROUNDS], h[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {  // every load issued before any is used
+        const int i = b * TILE + (r * THREADS + threadIdx.x) * VEC;
+        if (i + VEC <= n) {
+            c[r] = __ldcs(reinterpret_cast<const int4*>(qc + i));
+            o[r] = __ldcs(reinterpret_cast<const int4*>(q_occ + i));
+            l[r] = __ldcs(reinterpret_cast<const int4*>(lo + i));
+            h[r] = __ldcs(reinterpret_cast<const int4*>(hi + i));
+        } else {  // the ragged end: a query past n has an empty run
+            c[r] = ragged_load(qc, i, n);
+            o[r] = ragged_load(q_occ, i, n);
+            l[r] = ragged_load(lo, i, n);
+            h[r] = ragged_load(hi, i, n);
+        }
+    }
+    u64 w[ROUNDS][VEC], incl[ROUNDS];
+#pragma unroll
     for (int r = 0; r < ROUNDS; ++r) {
-        const int i = base + r * THREADS;
-        const int len = i < n ? kept_run(qc, q_occ, lo, hi, i, max_occ) : 0;
-        int incl = len;  // inclusive scan over the warp
+        u64 t = 0;
 #pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int v = __shfl_up_sync(0xffffffffu, incl, o);
-            if (lane >= o) incl += v;
+        for (int j = 0; j < VEC; ++j) {
+            w[r][j] = scan_word(get(c[r], j), get(o[r], j), get(l[r], j), get(h[r], j),
+                                max_occ);
+            t += w[r][j];
         }
-        if (lane == 31) warp_totals[warp] = incl;
-        __syncthreads();
-        int before = 0, total = 0;
+        incl[r] = t;  // inclusive scan over the warp's lanes
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-            before += w < warp ? warp_totals[w] : 0;
-            total += warp_totals[w];
+        for (int d = 1; d < 32; d <<= 1) {
+            const u64 v = __shfl_up_sync(FULL, incl[r], d);
+            if (lane >= d) incl[r] += v;
         }
-        if (len > 0) {
-            const int row = running + before + incl - len;
-            const int32_t q = qp[i], s = qs[i], t0 = lo[i];
-            for (int j = 0; j < len; ++j) {
-                out_q[row + j] = q;
-                out_t[row + j] = tp_s[t0 + j];
-                out_r[row + j] = s != ts_s[t0 + j];
+        if (lane == 31) s_warp[r][warp] = incl[r];
+        incl[r] -= t;  // now exclusive
+    }
+    __syncthreads();
+    u64 agg = 0;  // the block's sum, and each round's warps' sums before this warp
+    u64 pre[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+        pre[r] = agg;
+#pragma unroll
+        for (int v = 0; v < WARPS; ++v) {
+            pre[r] += v < warp ? s_warp[r][v] : 0ull;
+            agg += s_warp[r][v];
+        }
+    }
+    if (threadIdx.x == 0)
+        store_status(status + b,
+                     (u64)(b == 0 ? FLAG_PREFIX : FLAG_AGGREGATE) << FLAG_SHIFT | agg);
+    // Stage the kept queries before the look-back: the gathers of their
+    // positions and strands are in flight while it runs.
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+        const int i = b * TILE + (r * THREADS + threadIdx.x) * VEC;
+        u64 at = pre[r] + incl[r];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+            if (w[r][j]) {
+                const int k = (int)(at >> KEPT_SHIFT);
+                s_lo[k] = get(l[r], j);
+                s_row[k] = (int)(at & PAIRS_MASK);
+                copy_async(s_pos + k, qp + i + j);
+                copy_async(s_str + k, qs + i + j);
+            }
+            at += w[r][j];
+        }
+    }
+    if (warp == 0) {
+        const u64 before = b == 0 ? 0ull : look_back(status, b, lane);
+        if (lane == 0) {
+            if (b > 0) store_status(status + b, (u64)FLAG_PREFIX << FLAG_SHIFT | (before + agg));
+            if (b == gridDim.x - 1) {
+                totals[0] = (int32_t)((before + agg) & PAIRS_MASK);
+                totals[1] = (int32_t)((before + agg) >> KEPT_SHIFT);
+            }
+            s_before = before;
+        }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    // the staged queries out, coalesced, at the kept count before the block
+    const u64 before = s_before;
+    const int k0 = (int)(before >> KEPT_SHIFT), row0 = (int)(before & PAIRS_MASK);
+    for (int k = threadIdx.x; k < (int)(agg >> KEPT_SHIFT); k += THREADS) {
+        k_lo[k0 + k] = s_lo[k];
+        k_row[k0 + k] = row0 + s_row[k];
+        k_pos[k0 + k] = s_pos[k];
+        k_str[k0 + k] = s_str[k];
+    }
+}
+
+__global__ void __launch_bounds__(THREADS)
+match_emit_kernel(const int32_t* __restrict__ k_lo, const int32_t* __restrict__ k_row,
+                  const int32_t* __restrict__ k_pos, const int32_t* __restrict__ k_str,
+                  int n_kept, int n_pairs, const int32_t* __restrict__ tp_s,
+                  const int32_t* __restrict__ ts_s, int32_t* __restrict__ out_q,
+                  int32_t* __restrict__ out_t, int32_t* __restrict__ out_r) {
+    const int lane = threadIdx.x & 31;
+    const int first = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * RUN;  // the warp's run
+    if (first >= n_kept) return;
+    const int k = first + lane;
+    const bool has = k < n_kept;
+    const int32_t t0 = has ? k_lo[k] : 0;
+    const int32_t row = has ? k_row[k] : INT32_MAX;  // never at or below a row
+    const int32_t pos = has ? k_pos[k] : 0, strand = has ? k_str[k] : 0;
+    const int begin = __shfl_sync(FULL, row, 0);
+    const int end = first + RUN < n_kept ? k_row[first + RUN] : n_pairs;
+    for (int base = begin; base < end; base += 32 * EMIT_ROWS) {
+        int r[EMIT_ROWS], p[EMIT_ROWS], tpos[EMIT_ROWS], tstr[EMIT_ROWS];
+#pragma unroll
+        for (int e = 0; e < EMIT_ROWS; ++e) {  // the rows' gathers all in flight at once
+            r[e] = base + e * 32 + lane;
+            p[e] = 0;  // the last lane whose first row is at or before r
+#pragma unroll
+            for (int step = RUN / 2; step > 0; step >>= 1)
+                if (__shfl_sync(FULL, row, p[e] + step) <= r[e]) p[e] += step;
+            const int t = __shfl_sync(FULL, t0, p[e]) + r[e] - __shfl_sync(FULL, row, p[e]);
+            tpos[e] = r[e] < end ? tp_s[t] : 0;
+            tstr[e] = r[e] < end ? ts_s[t] : 0;
+        }
+#pragma unroll
+        for (int e = 0; e < EMIT_ROWS; ++e) {
+            const int32_t qpos = __shfl_sync(FULL, pos, p[e]);
+            const int32_t qstr = __shfl_sync(FULL, strand, p[e]);
+            if (r[e] < end) {
+                out_q[r[e]] = qpos;
+                out_t[r[e]] = tpos[e];
+                out_r[r[e]] = qstr != tstr[e];
             }
         }
-        running += total;
-        __syncthreads();  // warp_totals is rewritten next round
     }
 }
 
-int blocks_for(long long n) { return (int)((n + TILE - 1) / TILE); }
+int scan_blocks(long long n) { return (int)((n + TILE - 1) / TILE); }
 
 // Kernel A's grid: rounds a block and blocks (runs of rounds x A_THREADS words).
 void sample_grid(int W, int& rounds, int& nb) {
@@ -509,36 +663,50 @@ extern "C" int an_sampled_anchors(const void* words, const void* vwords, int k, 
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// Kernel B, count pass and scan. qc, q_occ, lo, hi int32 (n,); counts int32
-// (blocks + 1) scratch, counts[blocks] = the number of pairs. n >= 1.
-extern "C" int an_match_count(const void* qc, const void* q_occ, const void* lo, const void* hi,
-                              int n, int max_occ, void* counts, void* stream_p) {
-    if (n < 1) return (int)cudaErrorInvalidValue;
+// Kernel B's scratch, in int32: the scan's status words (u64, one a block),
+// then the compact list's four arrays (n each).
+extern "C" long long an_match_scratch_size(int n) {
+    return 2LL * scan_blocks(n) + 4LL * n;
+}
+
+// Kernel B, the scan. qc, q_occ, lo, hi int32 (n,), 16-byte aligned; qp, qs
+// int32 (n,); totals int32 (2,): the number of pairs and of kept queries;
+// scratch int32 of an_match_scratch_size(n). n >= 1, n x max_occ < 2^31.
+extern "C" int an_match_scan(const void* qc, const void* q_occ, const void* lo, const void* hi,
+                             const void* qp, const void* qs, int n, int max_occ,
+                             void* totals, void* scratch, void* stream_p) {
+    if (n < 1 || n > INT32_MAX - TILE || max_occ < 1 ||
+        (long long)n * max_occ >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    for (const void* p : {qc, q_occ, lo, hi})
+        if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_p);
-    const int nb = blocks_for(n);
-    auto* cnt = static_cast<int32_t*>(counts);
-    match_count_kernel<<<nb, THREADS, 0, stream>>>(
+    const int nb = scan_blocks(n);
+    auto* status = static_cast<u64*>(scratch);
+    auto* list = static_cast<int32_t*>(scratch) + 2LL * nb;
+    const cudaError_t err = cudaMemsetAsync(status, 0, sizeof(u64) * nb, stream);
+    if (err != cudaSuccess) return (int)err;
+    match_scan_kernel<<<nb, THREADS, 0, stream>>>(
         static_cast<const int32_t*>(qc), static_cast<const int32_t*>(q_occ),
-        static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi), n, max_occ, cnt);
-    scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(cnt, nb);
+        static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
+        static_cast<const int32_t*>(qp), static_cast<const int32_t*>(qs), n, max_occ, status,
+        static_cast<int32_t*>(totals), list, list + n, list + 2LL * n, list + 3LL * n);
     return (int)cudaGetLastError();
 }
 
-// Kernel B, emit pass, after an_match_count on the same inputs and counts.
-// qp, qs int32 (n,); tp_s, ts_s int32 (target anchors); out_q, out_t, out_r
-// int32 (counts[blocks],).
-extern "C" int an_match_emit(const void* qc, const void* q_occ, const void* lo, const void* hi,
-                             const void* qp, const void* qs, const void* tp_s, const void* ts_s,
-                             int n, int max_occ, const void* counts, void* out_q, void* out_t,
-                             void* out_r, void* stream_p) {
-    if (n < 1) return (int)cudaErrorInvalidValue;
-    match_emit_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream_p)>>>(
-        static_cast<const int32_t*>(qc), static_cast<const int32_t*>(q_occ),
-        static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
-        static_cast<const int32_t*>(qp), static_cast<const int32_t*>(qs),
-        static_cast<const int32_t*>(tp_s), static_cast<const int32_t*>(ts_s), n, max_occ,
-        static_cast<const int32_t*>(counts), static_cast<int32_t*>(out_q),
-        static_cast<int32_t*>(out_t), static_cast<int32_t*>(out_r));
+// Kernel B, the emit, after an_match_scan of the same n and scratch, with
+// the totals it wrote (n_kept >= 1). tp_s, ts_s int32 (target anchors);
+// out_q, out_t, out_r int32 (n_pairs,).
+extern "C" int an_match_emit(const void* tp_s, const void* ts_s, int n, const void* scratch,
+                             int n_kept, int n_pairs, void* out_q, void* out_t, void* out_r,
+                             void* stream_p) {
+    if (n < 1 || n_kept < 1 || n_kept > n || n_pairs < n_kept) return (int)cudaErrorInvalidValue;
+    const auto* list = static_cast<const int32_t*>(scratch) + 2LL * scan_blocks(n);
+    const int blocks = (n_kept + WARPS * RUN - 1) / (WARPS * RUN);
+    match_emit_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream_p)>>>(
+        list, list + n, list + 2LL * n, list + 3LL * n, n_kept, n_pairs,
+        static_cast<const int32_t*>(tp_s), static_cast<const int32_t*>(ts_s),
+        static_cast<int32_t*>(out_q), static_cast<int32_t*>(out_t), static_cast<int32_t*>(out_r));
     return (int)cudaGetLastError();
 }
 

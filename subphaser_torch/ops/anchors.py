@@ -37,7 +37,7 @@ HASH_MUL = 2654435761
 MAX_CAP = 1 << 24  # the cap retries of a tile stop here
 
 launches = {"sampled_anchors": 0, "match_emit": 0}
-entry_launches = {"an_sampled_anchors": 0, "an_match_count": 0, "an_match_emit": 0}
+entry_launches = {"an_sampled_anchors": 0, "an_match_scan": 0, "an_match_emit": 0}
 _launch_lock = threading.Lock()
 _lib = None
 
@@ -57,10 +57,12 @@ def anchors_lib():
                                                ptr, ptr, ptr, ptr, ptr, ptr]
             lib.an_sample_scratch_size.argtypes = [i32]
             lib.an_sample_scratch_size.restype = ctypes.c_longlong
-            lib.an_match_count.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr]
-            lib.an_match_emit.argtypes = [ptr] * 8 + [i32, i32] + [ptr] * 5
+            lib.an_match_scratch_size.argtypes = [i32]
+            lib.an_match_scratch_size.restype = ctypes.c_longlong
+            lib.an_match_scan.argtypes = [ptr] * 6 + [i32, i32, ptr, ptr, ptr]
+            lib.an_match_emit.argtypes = [ptr, ptr, i32, ptr, i32, i32] + [ptr] * 4
             lib.an_error_string.argtypes = [i32]
-            for fn in (lib.an_sampled_anchors, lib.an_match_count, lib.an_match_emit):
+            for fn in (lib.an_sampled_anchors, lib.an_match_scan, lib.an_match_emit):
                 fn.restype = i32
             lib.an_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -79,10 +81,11 @@ def _count_launch(name: str) -> None:
         launches[name] += 1
 
 
-def _blocks(n: int) -> int:
-    """Blocks of kernel B's grids: TILE = 256 threads x 8 rounds a block
-    (csrc/anchors.cu)."""
-    return -(-n // 2048)
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on a 16-byte boundary (kernel B reads
+    the query side by 16-byte loads); a view that does not is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _threshold(mod: int) -> int:
@@ -305,9 +308,9 @@ def match_emit(qc, q_occ, qp, qs, tp_s, ts_s, lo, hi, *, max_occ: int):
     pad; it pairs with every target of its run, rel = (qs != ts), in query
     order and run order.
 
-    A CUDA tensor launches kernel B of csrc/anchors.cu (a count pass and a
-    scan, then, once the host has read the number of pairs, the emit pass);
-    a CPU tensor takes :func:`match_emit_plain`."""
+    A CUDA tensor launches kernel B of csrc/anchors.cu (a scan that
+    compacts the kept queries, then, once the host has read the number of
+    pairs, the emit); a CPU tensor takes :func:`match_emit_plain`."""
     q_side, t_side = (qc, q_occ, qp, qs, lo, hi), (tp_s, ts_s)
     n = qc.numel()
     for x in q_side + t_side:
@@ -327,24 +330,21 @@ def match_emit(qc, q_occ, qp, qs, tp_s, ts_s, lo, hi, *, max_occ: int):
         return tuple(torch.empty(0, dtype=torch.int32, device=dev) for _ in range(3))
     if n * max_occ >= 1 << 31:
         raise ValueError("match_emit: the pairs must number fewer than 2^31")
-    counts = torch.empty(_blocks(n) + 1, dtype=torch.int32, device=dev)
     lib = anchors_lib()
-    q_side = tuple(x.contiguous() for x in q_side)
-    t_side = tuple(x.contiguous() for x in t_side)
-    qc, q_occ, qp, qs, lo, hi = q_side
-    tp_s, ts_s = t_side
+    qc, q_occ, lo, hi = (_aligned(x) for x in (qc, q_occ, lo, hi))
+    qp, qs, tp_s, ts_s = (x.contiguous() for x in (qp, qs, tp_s, ts_s))
+    scratch = torch.empty(lib.an_match_scratch_size(n), dtype=torch.int32, device=dev)
+    totals = torch.empty(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.an_match_count(qc.data_ptr(), q_occ.data_ptr(), lo.data_ptr(),
-                                 hi.data_ptr(), n, max_occ, counts.data_ptr(), stream)
-        _check(lib, err, "an_match_count")
-        n_pairs = int(counts[-1])
+        err = lib.an_match_scan(*(x.data_ptr() for x in (qc, q_occ, lo, hi, qp, qs)), n,
+                                max_occ, totals.data_ptr(), scratch.data_ptr(), stream)
+        _check(lib, err, "an_match_scan")
+        n_pairs, n_kept = totals.tolist()
         out = [torch.empty(n_pairs, dtype=torch.int32, device=dev) for _ in range(3)]
         if n_pairs:
-            err = lib.an_match_emit(
-                qc.data_ptr(), q_occ.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                qp.data_ptr(), qs.data_ptr(), tp_s.data_ptr(), ts_s.data_ptr(), n, max_occ,
-                counts.data_ptr(), *(o.data_ptr() for o in out), stream)
+            err = lib.an_match_emit(tp_s.data_ptr(), ts_s.data_ptr(), n, scratch.data_ptr(),
+                                    n_kept, n_pairs, *(o.data_ptr() for o in out), stream)
             _check(lib, err, "an_match_emit")
     _count_launch("match_emit")
     return tuple(out)

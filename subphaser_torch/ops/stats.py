@@ -8,8 +8,9 @@ file-writing pipeline uses the host float64 versions for decision parity;
 these compute approximate p-values on whatever device their tensors lie on
 (same decisions away from knife-edge ties).
 
-:func:`fisher_right_tail` is a hand-written CUDA kernel (csrc/stats.cu, one
-thread a table). A CPU tensor takes its plain version
+:func:`fisher_right_tail` is a hand-written CUDA kernel (csrc/stats.cu: a
+first pass of one thread a table, then a queue of the long walks that each
+lane takes from as its table stops). A CPU tensor takes its plain version
 (:func:`fisher_right_tail_plain`); a CUDA tensor launches the kernel or
 raises :class:`~subphaser_torch.kernels.KernelError`.
 ``launches["fisher_right_tail"]`` counts the wrapper calls that launched it.
@@ -82,8 +83,10 @@ def stats_lib():
             lib = kernels.load("stats")
             ptr = ctypes.c_void_p
             lib.st_fisher_right_tail.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                                                 ctypes.c_int, ptr, ptr]
+                                                 ctypes.c_int, ptr, ptr, ptr]
             lib.st_fisher_right_tail.restype = ctypes.c_int
+            lib.st_fisher_scratch_size.argtypes = [ctypes.c_longlong]
+            lib.st_fisher_scratch_size.restype = ctypes.c_longlong
             lib.st_error_string.argtypes = [ctypes.c_int]
             lib.st_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -97,8 +100,9 @@ def fisher_right_tail(a, b, c, d, max_terms: int = 16384):
     pmf(x+1)/pmf(x) = (n1-x)(k1-x) / ((x+1)(m-n1-k1+x+1)); starting at the
     observed cell the ratio is < 1 for enriched tables, so the series
     converges geometrically; ``max_terms`` caps the terms. The four inputs
-    broadcast to one shape. A CUDA tensor launches ``fisher_tail_kernel``
-    of csrc/stats.cu on the current stream; a CPU tensor takes
+    broadcast to one shape. A CUDA tensor launches csrc/stats.cu's two
+    kernels on the current stream (each walk stops where no later term can
+    change its float32 result); a CPU tensor takes
     :func:`fisher_right_tail_plain`."""
     a, b, c, d = torch.broadcast_tensors(*(_f32(v) for v in (a, b, c, d)))
     if len({t.device for t in (a, b, c, d)}) != 1:
@@ -112,12 +116,16 @@ def fisher_right_tail(a, b, c, d, max_terms: int = 16384):
     out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
+    if out.numel() >= 1 << 31:
+        raise ValueError("fisher_right_tail: fewer than 2^31 tables a call")
     lib = stats_lib()
     cells = [t.contiguous() for t in (a, b, c, d)]
+    scratch = torch.empty(lib.st_fisher_scratch_size(out.numel()), dtype=torch.int32,
+                          device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.st_fisher_right_tail(*(t.data_ptr() for t in cells), out.numel(), max_terms,
-                                       out.data_ptr(), stream)
+                                       out.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise KernelError("st_fisher_right_tail launch failed: "
                           + lib.st_error_string(err).decode())

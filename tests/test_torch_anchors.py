@@ -275,3 +275,23 @@ def test_cuda_match_emit_matches_plain():
     assert ta.launches["match_emit"] == before + 1
     for w, x in zip(want, got):
         assert torch.equal(w, x.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_match_emit_at_path_shapes():
+    """Kernel B at the blocks path's shapes (5 M anchors a side, ~5% of
+    the queries kept, ~2,400 blocks of the scan): the plain version's
+    pairs, one counted launch, one call of each C entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = [x.cuda() for x in _join_inputs(5_000_000, 5_000_000, 100_000_000, 14)]
+    want = ta.match_emit_plain(*args, max_occ=8)
+    before = ta.launches["match_emit"]
+    entries = {e: ta.entry_launches[e] for e in ("an_match_scan", "an_match_emit")}
+    got = ta.match_emit(*args, max_occ=8)
+    torch.cuda.synchronize()
+    assert ta.launches["match_emit"] == before + 1
+    assert all(ta.entry_launches[e] == n + 1 for e, n in entries.items())
+    assert want[0].numel() > 100_000
+    for w, x in zip(want, got):
+        assert torch.equal(w, x)

@@ -14,15 +14,23 @@ its sum before the block, a scan of the row sums), its rounds (a ballot
 rank a warp and offset, the warps' counts scanned over the offsets by
 every warp, each offset's run in the staging area, the taken k-mers'
 codes, the copy-out's search for the run of a staged slot), the cap, the
-early return and the pads shared out over the blocks; kernel B's kept run
-lengths, its grid of TILE query anchors a block walked in ROUNDS rounds of
-THREADS, scan_kernel's chunked exclusive scan (one block, a serial chunk a
-thread, Hillis-Steele over the threads), and the emit pass's rows (a warp
-inclusive scan by shuffles and the warp totals). Each transcription is
-held exact to the plain versions (``sampled_anchors_plain``,
+early return and the pads shared out over the blocks; kernel B's scan
+(match_scan_kernel: TILE queries a block read by VEC-query vector loads in
+ROUNDS rounds, each query's scan word kept << KEPT_SHIFT | run length, the
+thread, warp and round sums inside the block, the status words published
+with FLAG_AGGREGATE and FLAG_PREFIX and the decoupled look-back over
+windows of LOOKBACK predecessors, for any order in which the blocks run,
+the kept queries staged in query order before the look-back and copied
+out behind the blocks before, the totals) and its
+emit (match_emit_kernel: runs of RUN kept queries a warp, 32 x EMIT_ROWS rows
+a step, each row's query found by a binary search of the run's first
+rows). Each
+transcription is held exact to the plain versions (``sampled_anchors_plain``,
 ``match_emit_plain``) at tiles of one and of several blocks, the last
 ragged, caps that fall inside a block's runs and below a block's first
-slot; a transcription with one index broken must disagree.
+slot, and joins below one tile, with a ragged last tile, with every kept
+query in one block and with none kept; a transcription with one index,
+flag or search broken must disagree.
 """
 
 import re
@@ -47,18 +55,25 @@ def _const(name: str) -> int:
 
 
 CONST: dict[str, int] = {}
-for _name in ("THREADS", "WARPS", "ROUNDS", "TILE", "SCAN_THREADS", "SENTINEL", "HASH_MUL",
+for _name in ("THREADS", "WARPS", "VEC", "ROUNDS", "TILE", "LOOKBACK", "KEPT_SHIFT",
+              "FLAG_SHIFT", "FLAG_AGGREGATE", "FLAG_PREFIX", "RUN", "EMIT_ROWS", "SENTINEL",
+              "HASH_MUL",
               "OFFSETS", "A_THREADS", "A_WARPS", "A_ROUNDS", "A_MAX_BLOCKS", "STAGE",
               "NIB_ROUNDS"):
     CONST[_name] = _const(_name)
-(THREADS, WARPS, ROUNDS, TILE, SCAN_THREADS, CU_SENTINEL, HASH_MUL, OFFSETS, A_THREADS, A_WARPS,
- A_ROUNDS, A_MAX_BLOCKS, STAGE, NIB_ROUNDS) = CONST.values()
+(THREADS, WARPS, VEC, ROUNDS, TILE, LOOKBACK, KEPT_SHIFT, FLAG_SHIFT, FLAG_AGGREGATE,
+ FLAG_PREFIX, RUN, EMIT_ROWS, CU_SENTINEL, HASH_MUL, OFFSETS, A_THREADS, A_WARPS, A_ROUNDS, A_MAX_BLOCKS,
+ STAGE, NIB_ROUNDS) = CONST.values()
 
 
 def test_constants():
     assert CU_SENTINEL == SENTINEL and HASH_MUL == ta.HASH_MUL
-    assert WARPS * 32 == THREADS and TILE == THREADS * ROUNDS
-    assert ta._blocks(TILE) == 1 and ta._blocks(TILE + 1) == 2  # kernel B's grid
+    assert WARPS * 32 == THREADS and TILE == THREADS * VEC * ROUNDS and VEC == 4  # 16 B loads
+    assert LOOKBACK == 32 and RUN == 32 and EMIT_ROWS >= 1  # a warp's lanes
+    # a kept count and a pair count (each below 2^31) share a scan word, and
+    # a status word's flag sits above both
+    assert KEPT_SHIFT == 31 and FLAG_SHIFT == 2 * KEPT_SHIFT
+    assert {FLAG_AGGREGATE, FLAG_PREFIX} == {1, 2}  # 0: not yet published
     assert OFFSETS == 16 and A_WARPS * 32 == A_THREADS and STAGE == A_THREADS * OFFSETS
     assert A_THREADS <= 256  # a thread index fits the staged meta's 8 bits
 
@@ -81,34 +96,6 @@ def test_kernel_a_grid(W):
     assert rounds >= A_ROUNDS and nb <= A_MAX_BLOCKS
     if W == 1 << 19:
         assert (rounds, nb) == (4, 512)
-
-
-def _grid(n: int):
-    """Flat indices of each (block, round, thread): f = b * TILE + r * THREADS + t."""
-    nb = -(-n // TILE)
-    b, r, t = np.meshgrid(np.arange(nb), np.arange(ROUNDS), np.arange(THREADS), indexing="ij")
-    return nb, b * TILE + r * THREADS + t  # (nb, ROUNDS, THREADS)
-
-
-def _scan(counts: np.ndarray):
-    """scan_kernel: counts -> (exclusive offsets, total)."""
-    nb = counts.size
-    chunk = -(-nb // SCAN_THREADS)
-    sums = np.zeros(SCAN_THREADS, np.int64)
-    for t in range(SCAN_THREADS):
-        sums[t] = counts[t * chunk: min(t * chunk + chunk, nb)].sum()
-    own = sums.copy()
-    o = 1
-    while o < SCAN_THREADS:  # Hillis-Steele, inclusive
-        sums = sums + np.concatenate([np.zeros(o, np.int64), sums[:-o]])
-        o *= 2
-    out = np.empty(nb, np.int64)
-    for t in range(SCAN_THREADS):
-        run = sums[t] - own[t]
-        for i in range(t * chunk, min(t * chunk + chunk, nb)):
-            out[i] = run
-            run += counts[i]
-    return out, int(sums[-1])
 
 
 U32 = np.uint64(0xFFFFFFFF)
@@ -320,45 +307,180 @@ def test_kernel_a_matches_plain(W, k, mod, cap, n_frac):
         assert not np.array_equal(broken[0], got[0])
 
 
-def test_scan_kernel_chunks():
-    """More blocks than scan threads: every thread scans a chunk of 3."""
-    counts = np.random.default_rng(0).integers(0, 2049, 2 * SCAN_THREADS + 5)
-    offsets, total = _scan(counts)
-    assert np.array_equal(offsets, np.cumsum(counts) - counts) and total == counts.sum()
+PAIRS = (1 << KEPT_SHIFT) - 1
+INT32_MAX = (1 << 31) - 1
 
 
-def _kernel_b(qc, q_occ, qp, qs, tp_s, ts_s, lo, hi, max_occ, broken=False):
+def _scan_words(qc, q_occ, lo, hi, max_occ: int) -> np.ndarray:
+    """scan_word of every query: kept << KEPT_SHIFT | run length, 0 when
+    dropped (the keep rule of _combine_runs)."""
+    run = hi.astype(np.int64) - lo
+    keep = (run > 0) & (run <= max_occ) & (q_occ <= max_occ) & (qc != SENTINEL)
+    return np.where(keep, (1 << KEPT_SHIFT) | run, 0).astype(np.uint64)
+
+
+def _block_scan(words: np.ndarray, b: int):
+    """One block of match_scan_kernel before its look-back: its TILE words
+    (zero past n) as (round, warp, lane, j); each thread's sum a round,
+    the warps' inclusive shuffle scans, the warp totals (s_warp), and each
+    query's prefix inside the block (pre[round] + the lanes before + the
+    thread's words before). Returns (aggregate, prefixes (TILE,))."""
+    tile = np.zeros(TILE, np.uint64)
+    part = words[b * TILE:(b + 1) * TILE]
+    tile[:part.size] = part
+    w = tile.reshape(ROUNDS, WARPS, 32, VEC)
+    t = w.sum(axis=3)  # a thread's VEC words of a round
+    incl = np.cumsum(t, axis=2)  # the warp's inclusive scan
+    s_warp = incl[:, :, -1]  # (ROUNDS, WARPS)
+    flat = s_warp.reshape(-1)
+    pre = (np.cumsum(flat) - flat).reshape(ROUNDS, WARPS)  # rounds before, then warps
+    excl = pre[:, :, None] + incl - t  # the thread's first word
+    within = np.cumsum(w, axis=3) - w
+    return int(flat.sum()), (excl[:, :, :, None] + within).reshape(-1)
+
+
+def _look_back(status: list, b: int, state: dict, broken: str = ""):
+    """Warp 0's look-back from block b, resumable: reads windows of LOOKBACK
+    status words (lane 0 the nearest block, past block 0 a prefix of 0);
+    returns the sum before b, or None where a word of the window is still 0
+    (the warp spins: it reads the same window again later)."""
+    while True:
+        i = state["pos"] - np.arange(LOOKBACK)
+        s = [status[j] if j >= 0 else FLAG_PREFIX << FLAG_SHIFT for j in i]
+        flags = [x >> FLAG_SHIFT for x in s]
+        if 0 in flags:
+            return None
+        stop = FLAG_AGGREGATE if broken == "status_flag" else FLAG_PREFIX
+        hit = [lane for lane, f in enumerate(flags) if f >= stop]  # the ballot
+        last = hit[0] if hit else LOOKBACK - 1
+        if broken == "look_back":
+            last -= 1  # the prefix word's own value left out
+        state["before"] += sum(x & ((1 << FLAG_SHIFT) - 1) for x in s[:last + 1])
+        if hit:
+            return state["before"]
+        state["pos"] -= LOOKBACK
+
+
+def _kernel_b_scan(qc, q_occ, qp, qs, lo, hi, max_occ, order=None, broken=""):
+    """match_scan_kernel in numpy, its blocks run in ``order`` (a
+    permutation of the blocks; block order by default): a block publishes
+    its aggregate, stages its kept queries in query order (lo, first row
+    inside the block, position, strand), then looks back; a block whose
+    look-back meets an unpublished word waits, and the waiting blocks are
+    tried again, in turn, after every block that publishes; a block that
+    knows its prefix copies its staged queries out behind the kept queries
+    before it. Returns (status words, totals, the compact list (k_lo,
+    k_row, k_pos, k_str))."""
     n = qc.size
-    nb, f = _grid(n)
-    inside = f < n
-    i = np.where(inside, f, 0)
-    run = hi[i] - lo[i]
-    keep = inside & (run > 0) & (run <= max_occ) & (q_occ[i] <= max_occ) & (qc[i] != SENTINEL)
-    lens = np.where(keep, run, 0)
-    offsets, total = _scan(lens.sum(axis=(1, 2)))
-    out = np.full((3, total), -7, np.int32)
-    for b in range(nb):
-        running = offsets[b]
-        for r in range(ROUNDS):
-            ln = lens[b, r].reshape(WARPS, 32)
-            incl = np.cumsum(ln, axis=1)  # the warp's shuffle scan
-            before = np.concatenate([[0], np.cumsum(incl[:, -1])[:-1]])[:, None]
-            rows = (running + before + incl - (0 if broken else ln)).reshape(-1)
-            for t in np.flatnonzero(lens[b, r]):
-                q = i[b, r, t]
-                for j in range(lens[b, r, t]):
-                    if rows[t] + j < total:
-                        out[:, rows[t] + j] = (qp[q], tp_s[lo[q] + j],
-                                               int(qs[q] != ts_s[lo[q] + j]))
-            running += ln.sum()
+    words = _scan_words(qc, q_occ, lo, hi, max_occ)
+    nb = -(-n // TILE)
+    status = [0] * nb
+    state = {}
+    lst = np.full((4, n), -7, np.int64)
+    totals = [None, None]
+
+    def stage(b: int, pre: np.ndarray) -> np.ndarray:
+        """The block's staging area: (4, TILE) at the kept queries' local
+        places."""
+        i = b * TILE + np.arange(TILE)
+        kept = (i < n) & (words[np.minimum(i, n - 1)] != 0)
+        k = (pre[kept] >> np.uint64(KEPT_SHIFT)).astype(np.int64)
+        staged = np.full((4, TILE), -9, np.int64)
+        staged[0, k] = lo[i[kept]]
+        staged[1, k] = (pre[kept] & np.uint64(PAIRS)).astype(np.int64)
+        staged[2, k], staged[3, k] = qp[i[kept]], qs[i[kept]]
+        return staged
+
+    def finish(b: int, before: int):
+        agg, staged = state[b]["agg"], state[b]["staged"]
+        if b > 0:
+            status[b] = FLAG_PREFIX << FLAG_SHIFT | (before + agg)
+        if b == nb - 1:
+            totals[:] = [(before + agg) & PAIRS, (before + agg) >> KEPT_SHIFT]
+        k0, row0, count = before >> KEPT_SHIFT, before & PAIRS, agg >> KEPT_SHIFT
+        lst[:, k0:k0 + count] = staged[:, :count]
+        lst[1, k0:k0 + count] += row0
+        state[b]["done"] = True
+
+    order = list(range(nb)) if order is None else order
+    assert sorted(order) == list(range(nb))
+    waiting = []
+    for b in order:
+        agg, pre = _block_scan(words, b)
+        state[b] = {"agg": agg, "staged": stage(b, pre), "pos": b - 1, "before": 0,
+                    "done": False}
+        status[b] = (FLAG_PREFIX if b == 0 else FLAG_AGGREGATE) << FLAG_SHIFT | agg
+        waiting.append(b)
+        progress = True
+        while progress:
+            progress = False
+            for w in list(waiting):
+                before = 0 if w == 0 else _look_back(status, w, state[w], broken)
+                if before is not None:
+                    waiting.remove(w)
+                    finish(w, before)
+                    progress = True
+    assert not waiting and all(v["done"] for v in state.values())
+    n_pairs, n_kept = totals
+    return status, (n_pairs, n_kept), tuple(lst[:, :n_kept])
+
+
+def _kernel_b_emit(tp_s, ts_s, n_pairs, k_lo, k_row, k_pos, k_str, broken=""):
+    """match_emit_kernel in numpy: a warp a run of RUN kept queries, one a
+    lane (past the list: first row INT32_MAX); the run's rows 32 x
+    EMIT_ROWS at a step, EMIT_ROWS a lane; a row's query by the binary
+    search of the lanes' first rows."""
+    n_kept = k_lo.size
+    out = np.full((3, n_pairs), -7, np.int64)
+    for first in range(0, n_kept, RUN):
+        k = first + np.arange(RUN)
+        has = k < n_kept
+        ks = np.minimum(k, n_kept - 1)
+        row = np.where(has, k_row[ks], INT32_MAX)
+        t0 = np.where(has, k_lo[ks], 0)
+        pos = np.where(has, k_pos[ks], 0)
+        strand = np.where(has, k_str[ks], 0)
+        end = k_row[first + RUN] if first + RUN < n_kept else n_pairs
+        steps = [base + h * 32 for base in range(row[0], end, 32 * EMIT_ROWS)
+                 for h in range(EMIT_ROWS)]
+        for start in steps:
+            r = start + np.arange(32)
+            p = np.zeros(32, np.int64)
+            step = RUN // 2
+            while step:
+                v = row[p + step]
+                p = np.where(v < r if broken == "row_search" else v <= r, p + step, p)
+                step //= 2
+            t = t0[p] + r - row[p]
+            ok = r < end
+            tpos = np.take(tp_s, t, mode="clip")  # a broken search may read past the end
+            tstr = np.take(ts_s, t, mode="clip")
+            out[0, r[ok]] = pos[p][ok]
+            out[1, r[ok]] = tpos[ok]
+            out[2, r[ok]] = (strand[p] != tstr)[ok]
     return out
 
 
-@pytest.mark.parametrize("n_q,n_t,n_codes", [(5000, 6000, 3000), (2049, 400, 100)])
-def test_kernel_b_matches_plain(n_q, n_t, n_codes):
-    rng = np.random.default_rng(n_q)
+def _kernel_b(qc, q_occ, qp, qs, tp_s, ts_s, lo, hi, max_occ, order=None, broken=""):
+    """Both launches of kernel B: (the outputs (3, pairs), the totals)."""
+    _status, (n_pairs, n_kept), lst = _kernel_b_scan(qc, q_occ, qp, qs, lo, hi, max_occ, order,
+                                                     broken)
+    if n_pairs == 0:
+        return np.zeros((3, 0), np.int64), (n_pairs, n_kept)
+    return _kernel_b_emit(tp_s, ts_s, n_pairs, *lst, broken=broken), (n_pairs, n_kept)
+
+
+def _join(n_q: int, n_t: int, n_codes: int, seed: int, keep_block: int | None = None):
+    """A random join as match_anchors_dev hands it to the kernel; with
+    ``keep_block``, every query outside that block of the scan has no
+    target, so every kept query falls in that one block."""
+    rng = np.random.default_rng(seed)
     qc = rng.integers(0, n_codes, n_q).astype(np.int32)
     qc[rng.random(n_q) < 0.05] = SENTINEL
+    if keep_block is not None:
+        outside = np.ones(n_q, bool)
+        outside[keep_block * TILE:(keep_block + 1) * TILE] = False
+        qc[outside] = np.where(qc[outside] == SENTINEL, SENTINEL, qc[outside] + n_codes)
     tc = np.sort(rng.integers(0, n_codes, n_t)).astype(np.int32)
     tp_s = rng.integers(0, 1 << 30, n_t).astype(np.int32)
     ts_s = rng.integers(0, 2, n_t).astype(np.int32)
@@ -368,13 +490,88 @@ def test_kernel_b_matches_plain(n_q, n_t, n_codes):
     q_occ = (np.searchsorted(qsort, qc, "right") - np.searchsorted(qsort, qc)).astype(np.int32)
     lo = np.searchsorted(tc, qc).astype(np.int32)
     hi = np.searchsorted(tc, qc, "right").astype(np.int32)
-    args = (qc, q_occ, qp, qs, tp_s, ts_s, lo, hi)
+    return qc, q_occ, qp, qs, tp_s, ts_s, lo, hi
+
+
+JOINS = {
+    "below_one_tile": (TILE // 3, 600, 300, None),
+    "ragged_last_tile": (5 * TILE + 77, 6 * TILE, 3 * TILE, None),
+    "kept_in_one_block": (4 * TILE + 5, 2 * TILE, TILE, 2),
+    "none_kept": (3 * TILE, 400, 300, None),  # every run made empty
+    "one_full_tile": (TILE, 1500, 1000, None),
+}
+
+
+@pytest.mark.parametrize("case", list(JOINS))
+def test_kernel_b_matches_plain(case):
+    n_q, n_t, n_codes, keep_block = JOINS[case]
+    args = _join(n_q, n_t, n_codes, n_q, keep_block)
+    if case == "none_kept":
+        args = args[:7] + (args[6],)
     want = ta.match_emit_plain(*(torch.from_numpy(x) for x in args), max_occ=8)
-    got = _kernel_b(*args, max_occ=8)
-    assert got.shape[1] > 0
+    got, (n_pairs, n_kept) = _kernel_b(*args, max_occ=8)
+    assert got.shape[1] == n_pairs
     for w, g in zip(want, got):
         assert np.array_equal(w.numpy(), g)
-    assert not np.array_equal(_kernel_b(*args, max_occ=8, broken=True), got)
+    qc, q_occ, qp, qs, _tp, _ts, lo, hi = args
+    _status, _totals, (klo, krow, kpos, kstr) = _kernel_b_scan(qc, q_occ, qp, qs, lo, hi, 8)
+    kept = np.flatnonzero(_scan_words(qc, q_occ, lo, hi, 8))  # the list in query order
+    run = hi[kept].astype(np.int64) - lo[kept]
+    assert np.array_equal(klo, lo[kept]) and np.array_equal(krow, np.cumsum(run) - run)
+    assert np.array_equal(kpos, qp[kept]) and np.array_equal(kstr, qs[kept])
+    if case == "none_kept":
+        assert n_pairs == 0 and n_kept == 0
+    else:
+        assert n_pairs > n_kept > 0
+    if case == "kept_in_one_block":
+        assert np.all(kept // TILE == keep_block)
+
+
+def _orders(nb: int) -> dict:
+    return {"block_order": list(range(nb)), "reverse": list(range(nb))[::-1],
+            "seeded_random": list(np.random.default_rng(nb).permutation(nb))}
+
+
+@pytest.mark.parametrize("order", ["block_order", "reverse", "seeded_random"])
+def test_look_back_prefixes_in_any_order(order):
+    """More blocks than an H100 holds at once (132 SMs x 8 blocks):
+    whatever order the blocks publish in, the look-back gives every block
+    the sum of the blocks before it, the compact list is the same and the
+    totals are the whole sums."""
+    nb = 132 * 8 + 9
+    rng = np.random.default_rng(11)
+    n = nb * TILE - 100
+    lo = rng.integers(0, 1000, n).astype(np.int32)
+    run = np.where(rng.random(n) < 0.05, rng.integers(1, 9, n), 0)
+    hi = (lo + run).astype(np.int32)
+    qc = np.zeros(n, np.int32)
+    q_occ = np.ones(n, np.int32)
+    qp = rng.integers(0, 1 << 30, n).astype(np.int32)
+    qs = rng.integers(0, 2, n).astype(np.int32)
+    status, totals, lst = _kernel_b_scan(qc, q_occ, qp, qs, lo, hi, 8, _orders(nb)[order])
+    words = _scan_words(qc, q_occ, lo, hi, 8)
+    sums = np.array([words[b * TILE:(b + 1) * TILE].sum() for b in range(nb)], np.uint64)
+    assert [x >> FLAG_SHIFT for x in status] == [FLAG_PREFIX] * nb
+    assert [x & ((1 << FLAG_SHIFT) - 1) for x in status] == [int(v) for v in np.cumsum(sums)]
+    assert totals == (int(run.sum()), int((run > 0).sum()))
+    kept = np.flatnonzero(run > 0)
+    assert np.array_equal(lst[0], lo[kept]) and np.array_equal(lst[1], np.cumsum(run)[kept] -
+                                                                  run[kept])
+    assert np.array_equal(lst[2], qp[kept]) and np.array_equal(lst[3], qs[kept])
+
+
+@pytest.mark.parametrize("broken", ["status_flag", "look_back", "row_search"])
+def test_kernel_b_with_a_broken_step_disagrees(broken):
+    """A look-back that stops at an aggregate as if it were a prefix, one
+    that leaves the prefix word's value out, and a row search that takes
+    the lane before a run's first row each give other pairs."""
+    args = _join(40 * TILE - 3, 20 * TILE, 10 * TILE, 21)
+    want = ta.match_emit_plain(*(torch.from_numpy(x) for x in args), max_occ=8)
+    order = _orders(40)["seeded_random"]
+    got, _totals = _kernel_b(*args, max_occ=8, order=order)
+    assert all(np.array_equal(w.numpy(), g) for w, g in zip(want, got))
+    bad, _totals = _kernel_b(*args, max_occ=8, order=order, broken=broken)
+    assert bad.shape != got.shape or not np.array_equal(bad, got)
 
 
 @pytest.mark.parametrize("broken", ["table_block_major", "rank_with_own_lane",

@@ -230,7 +230,7 @@ def test_anchor_wrappers_take_the_plain_version_on_the_cpu_only(name, cpu):
         assert banned not in cuda, banned
     assert "lib = anchors_lib()" in cuda and f'_count_launch("{name}")' in cuda
     assert "_check(lib, err" in cuda
-    launch = text[text.index("def _count_launch("):text.index("def _blocks(")]
+    launch = text[text.index("def _count_launch("):text.index("def _aligned(")]
     assert "with _launch_lock:" in launch and "launches[name] += 1" in launch
     assert "raise KernelError(" in text[text.index("def _check("):text.index("def _count_launch(")]
 
