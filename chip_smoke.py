@@ -21,6 +21,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
             kernel/plain/library times (CUDA events, median after a warm-up;
             a plain version at 2^27 by the host clock of its one checking
             call) and the bytes bound;
+2b. runs    the run-length kernel of ops/count (csrc/runs.cu: run_scan and
+            run_compact) by tools/bench_runs_torch.py at 2^24 keys (a
+            low-memory batch), 2^27 (the fast path, a 5-million-key
+            SENTINEL run) and 2^28 weighted entries (a merge), bit-exact
+            against its plain version and the torch.cummax chain it
+            replaced; prints the three's times and the bytes bound;
 3. primitives  the sort-primitives tool (tools/bench_sort_primitives_torch.py)
             at its full size, 128 blocks of 2^18 keys, with the launch counts
             read around it (the whole bitonic and radix sorts are candidates
@@ -530,13 +536,27 @@ def phase_sort() -> dict:
     return rows
 
 
-def load_tool():
-    """The sort-primitives tool as a module (tools/ is not a package)."""
-    path = os.path.join(ROOT, "tools", "bench_sort_primitives_torch.py")
-    spec = importlib.util.spec_from_file_location("bench_sort_primitives_torch", path)
+def load_tool(name: str = "bench_sort_primitives_torch"):
+    """A tool of tools/ as a module (tools/ is not a package): by default
+    the sort-primitives tool."""
+    path = os.path.join(ROOT, "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def phase_runs() -> dict:
+    """The run-length kernel of ops/count (csrc/runs.cu) at the counting
+    paths' shapes, by tools/bench_runs_torch.py: {shape: row}."""
+    tool = load_tool("bench_runs_torch")
+    rows = {}
+    for name in tool.SHAPES:
+        rows[name] = tool.run_shape(name)
+        log(f"runs {name} " + json.dumps(rows[name]))
+    log("phase runs ok: bit-exact against the plain version and the cummax chain at "
+        + ", ".join(rows))
+    return rows
 
 
 def card_int32_ops_per_s() -> tuple[float, dict]:
@@ -1741,19 +1761,23 @@ def phase_main(k: int = 15) -> dict:
     mapping table) or ``main_k17`` (pair codes, searchsorted mapping)."""
     import torch
 
-    from subphaser_torch.ops import sort_smem
+    from subphaser_torch.ops import count, sort_smem
 
     phase = "main" if k == 15 else f"main_k{k}"
     fa, cfg, _hmm = main_genome()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_sort_launches()
+    run_launches0 = dict(count.entry_launches)
     t0 = time.perf_counter()
     pipe = run_cli(fa, cfg, os.path.join(WORK, phase), "-k", str(k), "-min_freq", "200")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sort_smem.launches
     by_route = dict(sort_smem.route_launches)
+    run_launches = {e: n - run_launches0[e] for e, n in count.entry_launches.items()}
+    if k == 15 and not run_launches["rn_count"]:
+        raise RuntimeError(f"the run kernel was not launched on the {phase} path")
     for suffix in CORE_FILES:
         if not os.path.getsize(pipe.para_prefix + suffix):
             raise RuntimeError(f"empty output {suffix}")
@@ -1778,6 +1802,7 @@ def phase_main(k: int = 15) -> dict:
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "sort_launches": launches,
         "sort_launches_by_route": by_route,
+        "run_launches": run_launches,
         "sig_kmers": len(kmers),
         "assignments": read_assignments(pipe),
     }
@@ -2974,8 +2999,8 @@ def parallel_kernel_entries(res: dict) -> list[dict]:
     return out
 
 
-PHASES = ["build", "sort", "primitives", "hmm", "parity", "main", "stats", "main_k17", "ltr",
-          "trees", "blocks", "anchors", "parallel"]
+PHASES = ["build", "sort", "runs", "primitives", "hmm", "parity", "main", "stats", "main_k17",
+          "ltr", "trees", "blocks", "anchors", "parallel"]
 
 
 def main() -> int:
@@ -3104,6 +3129,21 @@ def main() -> int:
             "library_ms": None,
             "by_shape": by_shape,
         })
+    lead = res["runs"]["batch_2^24"]
+    kernels.append({
+        "name": "runs",
+        "route": "cuda",
+        "source": "subphaser_torch/csrc/runs.cu",
+        # a hand-written kernel of an XLA-lowered function (jax.lax.cummax)
+        "replaces": tpu_kernel_site("*/ops/count.py", "def _sorted_run_survivors"),
+        "launches": main_res["run_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in res["runs"].values()),
+        **{key: lead[key] for key in ("kernel_ms", "count_ms", "plain_ms", "cummax_ms",
+                                      "bound_ms", "share_of_bound")},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "by_shape": res["runs"],
+    })
     kernels += tree_kernel_entries(res)
     kernels += anchor_kernel_entries(res)
     kernels.append(stats_kernel_entry(res))

@@ -37,6 +37,7 @@ SOURCES = {
     "anchors": os.path.join(PKG_DIR, "csrc", "anchors.cu"),
     "stats": os.path.join(PKG_DIR, "csrc", "stats.cu"),
     "parallel": os.path.join(PKG_DIR, "csrc", "parallel.cu"),
+    "runs": os.path.join(PKG_DIR, "csrc", "runs.cu"),
     "ltr_native": os.path.join(PKG_DIR, "csrc", "ltr_native.cpp"),
 }
 HOST_SOURCES = {"ltr_native"}  # g++, not nvcc

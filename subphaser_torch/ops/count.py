@@ -3,13 +3,15 @@
 Per tile the canonical codes are sorted and run-length encoded into a sparse
 (code, count) spectrum, SENTINEL-padded to a fixed length. Every keys-only
 sort goes through the bitonic kernel (ops/sort_smem). Spectra merge by one
-key-value sort + segmented sum (``torch.sort(stable=True)``; the JAX package
-uses XLA's sort there too). Compaction keeps the survivors of a sorted
-array with a boolean mask, which yields the same bits as the JAX package's
-sort-based compaction: survivors of a sorted array are already in order.
-Each pass is a device span (utils/profiling) named relative to its caller's
-step: ``codes``, ``sort``, ``runs``, ``compact`` and ``merge`` (``count/runs``
-under counting, ``map/runs`` under mapping).
+key-value sort (``torch.sort(stable=True)``; the JAX package uses XLA's sort
+there too) and the run totals of the sorted counts. Run lengths and run
+totals come from the positions of consecutive run ends (:func:`run_scan`,
+:func:`run_compact`: ``csrc/runs.cu`` on a CUDA tensor, their plain
+versions on a CPU tensor), thresholded and compacted in order, which yields
+the same bits as the JAX package's prefix-maximum scan and sort-based
+compaction. Each pass is a device span (utils/profiling) named relative to
+its caller's step: ``codes``, ``sort``, ``runs``, ``compact`` and ``merge``
+(``count/runs`` under counting, ``map/runs`` under mapping).
 
 Replaces jellyfish's hash counting (reference Jellyfish.py:697-703) and its
 host dict merge (Jellyfish.py:439-460).
@@ -17,12 +19,19 @@ host dict merge (Jellyfish.py:439-460).
 
 from __future__ import annotations
 
+import threading
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from subphaser_torch.ops.kmer import SENTINEL, kmer_codes
 from subphaser_torch.ops.sort_smem import sort_int32, sort_int32_pow2
-from subphaser_torch.utils.profiling import span
+from subphaser_torch.utils.profiling import count_launch, span
+
+entry_launches = {"rn_count": 0, "rn_write": 0}  # csrc/runs.cu launches by C entry
+_launch_lock = threading.Lock()
+_lib = None
 
 
 def _pad_to(x: torch.Tensor, cap: int, value) -> torch.Tensor:
@@ -41,27 +50,14 @@ def sort_rle(codes: torch.Tensor):
     n = codes.numel()
     with span("sort", device=True):
         s = sort_int32(codes.reshape(-1))
-    keep, runlen, _m = _sorted_run_survivors(s, 1)
-    return _compact_survivors(s, keep, runlen, n)
+    return _compact_survivors(_sorted_run_survivors(s, 1), n)
 
 
-def _merge_sorted_runs(codes, counts, lower: int):
-    """Sort (code, count) pairs and compute run totals.
-
-    Returns (sorted codes, int32 run totals, keep mask at run ends,
-    survivor count)."""
+def _merge_sorted_runs(codes, counts, lower: int) -> "Runs":
+    """Sort (code, count) pairs and take the run totals of the counts
+    (:func:`run_scan`)."""
     codes, order = torch.sort(codes, stable=True)
-    counts = counts[order]
-    n = codes.numel()
-    start = torch.ones(n, dtype=torch.bool, device=codes.device)
-    start[1:] = codes[1:] != codes[:-1]
-    end = torch.ones(n, dtype=torch.bool, device=codes.device)
-    end[:-1] = codes[:-1] != codes[1:]
-    csum = torch.cumsum(counts, 0, dtype=torch.int64)
-    base = torch.cummax(torch.where(start, csum - counts, -1), 0).values
-    run_tot = csum - base
-    keep = end & (run_tot >= lower) & (codes != SENTINEL) & (run_tot > 0)
-    return codes, run_tot.to(torch.int32), keep, keep.sum()
+    return run_scan(codes, counts[order], lower)
 
 
 def merge_rle_many(parts, lower_count: int = 1):
@@ -71,17 +67,12 @@ def merge_rle_many(parts, lower_count: int = 1):
     if len(parts) == 1 and lower_count <= 1:
         return parts[0]
     with span("merge", device=True):
-        codes = torch.cat([p[0] for p in parts])
-        counts = torch.cat([p[1] for p in parts])
-        total = codes.numel()
+        total = sum(int(p[0].numel()) for p in parts)
         cap = 1 << max(total - 1, 1).bit_length()
-        codes = _pad_to(codes, cap, SENTINEL)
-        counts = _pad_to(counts, cap, 0)
-        s, run_tot, keep, m = _merge_sorted_runs(codes, counts, lower_count)
-        m = int(m)
-        out_cap = max(1 << max(m - 1, 1).bit_length(), 1 << 10)
-        out_cap = min(out_cap, s.numel())
-        return _compact_survivors(s, keep, run_tot, out_cap)
+        runs = _merge_sorted_runs(_pad_to(torch.cat([p[0] for p in parts]), cap, SENTINEL),
+                                  _pad_to(torch.cat([p[1] for p in parts]), cap, 0),
+                                  lower_count)
+        return _compact_survivors(runs, _out_cap(int(runs.m), cap))
 
 
 def count_tile(words, vwords, k: int, n_pos_words: int):
@@ -105,28 +96,161 @@ def count_tile_batch(words, vwords, k: int, n_pos_words: int):
     return sort_rle(extract_codes_batch(words, vwords, k, n_pos_words))
 
 
-def _sorted_run_survivors(s: torch.Tensor, lower: int):
-    """Sorted codes -> (keep mask at run ends, int32 run lengths, survivor
-    count). The distance to each run's start comes from a prefix max."""
+@dataclass
+class Runs:
+    """One run-length pass over sorted keys (:func:`run_scan`): the survivor
+    count ``m`` (a tensor on the keys' device, read by the caller when it
+    needs the number) and what :func:`run_compact` writes the survivors
+    from."""
+
+    keys: torch.Tensor
+    weights: torch.Tensor | None
+    lower: int
+    m: torch.Tensor
+    status: torch.Tensor | None = None   # CUDA: the status words of rn_count
+    kept: tuple | None = None            # CPU: the survivors' keys and totals
+
+
+def runs_lib():
+    """csrc/runs.cu, built at first use."""
+    global _lib
+    with _launch_lock:
+        if _lib is None:
+            import ctypes
+
+            from subphaser_torch import kernels
+
+            lib = kernels.load("runs")
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.rn_scratch_size.argtypes = [i64]
+            lib.rn_scratch_size.restype = i64
+            lib.rn_count.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr]
+            lib.rn_write.argtypes = [ptr, ptr, i64, i32, ptr, ptr, i32, ptr, ptr, ptr]
+            for fn in (lib.rn_count, lib.rn_write):
+                fn.restype = i32
+            lib.rn_error_string.argtypes = [i32]
+            lib.rn_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _launched(lib, err: int, entry: str) -> None:
+    if err != 0:
+        from subphaser_torch.kernels import KernelError
+
+        raise KernelError(f"{entry} launch failed: " + lib.rn_error_string(err).decode())
+    with _launch_lock:
+        entry_launches[entry] += 1
+    count_launch(entry)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` on a 16-byte boundary (the kernel reads 16-byte vectors); a
+    view that is not is copied."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def run_scan_plain(keys: torch.Tensor, weights: torch.Tensor | None, lower: int):
+    """The plain version of :func:`run_scan`: the survivors' keys and int32
+    totals. Run ends are where a key differs from the next (and the last
+    entry); a run's length is the difference of consecutive run-end
+    positions, its total the difference of the weights' prefix sums there."""
+    n = keys.numel()
+    end = torch.ones(n, dtype=torch.bool, device=keys.device)
+    end[:-1] = keys[:-1] != keys[1:]
+    ends = torch.nonzero(end).reshape(-1)
+    if weights is None:
+        at = ends + 1
+    else:
+        at = torch.cumsum(weights, 0, dtype=torch.int64)[ends]
+    total = torch.diff(at, prepend=at.new_zeros(1))
+    codes = keys[ends]
+    keep = (total >= lower) & (codes != SENTINEL) & (total > 0)
+    return codes[keep], total[keep].to(torch.int32)
+
+
+def _check_runs_input(keys: torch.Tensor, weights: torch.Tensor | None) -> None:
+    if keys.dtype != torch.int32 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("run_scan: the keys must be a contiguous 1-D int32 tensor, got "
+                         f"{keys.dtype} {tuple(keys.shape)}")
+    if weights is not None and (weights.dtype != torch.int32 or weights.shape != keys.shape
+                                or not weights.is_contiguous()
+                                or weights.device != keys.device):
+        raise ValueError("run_scan: the weights must be a contiguous int32 tensor of the "
+                         "keys' shape and device")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"run_scan: unsupported device {keys.device}")
+    if keys.numel() >= 1 << 31:
+        raise ValueError("run_scan: at most 2^31 - 1 keys")
+
+
+def run_scan(keys: torch.Tensor, weights: torch.Tensor | None, lower: int) -> Runs:
+    """The runs of sorted int32 ``keys``: each run's length, or with int32
+    ``weights`` (>= 0, one an entry) the total of its weights, below 2^31;
+    a run survives where total >= lower, its key is not SENTINEL and its
+    total is above 0. Returns a :class:`Runs` whose ``m`` counts the
+    survivors; :func:`run_compact` writes them.
+
+    A CUDA tensor launches ``rn_count`` of csrc/runs.cu (a memset and one
+    kernel; ``m`` stays on the card); a CPU tensor takes
+    :func:`run_scan_plain`."""
+    _check_runs_input(keys, weights)
+    if keys.device.type == "cpu" or keys.numel() == 0:  # no keys: nothing to launch
+        kept = run_scan_plain(keys, weights, lower)
+        return Runs(keys, weights, lower, torch.tensor(kept[0].numel(), dtype=torch.int32,
+                                                       device=keys.device), kept=kept)
+    lib = runs_lib()
+    dev = keys.device
+    keys = _aligned(keys)
+    weights = None if weights is None else _aligned(weights)
+    n = keys.numel()
+    status = torch.empty(lib.rn_scratch_size(n), dtype=torch.int32, device=dev)
+    m = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rn_count(keys.data_ptr(), None if weights is None else weights.data_ptr(),
+                           n, lower, m.data_ptr(), status.data_ptr(), stream)
+    _launched(lib, err, "rn_count")
+    return Runs(keys, weights, lower, m, status=status)
+
+
+def run_compact(runs: Runs, cap: int):
+    """The first ``cap`` survivors of :func:`run_scan` in order: (keys,
+    int32 totals), each a new tensor of ``cap`` entries, SENTINEL / 0-padded
+    from the survivor count. A CUDA scan launches ``rn_write`` of
+    csrc/runs.cu; a CPU scan pads or cuts its plain result."""
+    if runs.kept is not None:
+        return _pad_to(runs.kept[0], cap, SENTINEL), _pad_to(runs.kept[1], cap, 0)
+    lib = runs_lib()
+    keys, weights = runs.keys, runs.weights
+    dev = keys.device
+    out_keys = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_tot = torch.empty(cap, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rn_write(keys.data_ptr(), None if weights is None else weights.data_ptr(),
+                           keys.numel(), runs.lower, runs.m.data_ptr(), runs.status.data_ptr(),
+                           cap, out_keys.data_ptr(), out_tot.data_ptr(), stream)
+    _launched(lib, err, "rn_write")
+    return out_keys, out_tot
+
+
+def _sorted_run_survivors(s: torch.Tensor, lower: int) -> Runs:
+    """Sorted codes -> their runs (:func:`run_scan`, run lengths)."""
     with span("runs", device=True):
-        n = s.numel()
-        iota = torch.arange(n, dtype=torch.int32, device=s.device)
-        start = torch.ones(n, dtype=torch.bool, device=s.device)
-        start[1:] = s[1:] != s[:-1]
-        end = torch.ones(n, dtype=torch.bool, device=s.device)
-        end[:-1] = s[:-1] != s[1:]
-        last_start = torch.cummax(torch.where(start, iota, -1), 0).values
-        runlen = iota - last_start + 1
-        keep = end & (runlen >= lower) & (s != SENTINEL)
-        return keep, runlen, keep.sum()
+        return run_scan(s, None, lower)
 
 
-def _compact_survivors(s, keep, runlen, cap: int):
+def _compact_survivors(runs: Runs, cap: int):
     """Survivor codes + counts, SENTINEL/0-padded or cut to ``cap``."""
     with span("compact", device=True):
-        codes = _pad_to(s[keep], cap, SENTINEL)
-        counts = _pad_to(runlen[keep].to(torch.int32), cap, 0)
-        return codes, counts
+        return run_compact(runs, cap)
+
+
+def _out_cap(m: int, n: int) -> int:
+    """The output size of a thresholded count: m survivors rounded up to a
+    power of two, at least 2^10 and at most the ``n`` entries scanned."""
+    return min(max(1 << max(m - 1, 1).bit_length(), 1 << 10), n)
 
 
 def _sort_only(codes: torch.Tensor) -> torch.Tensor:
@@ -149,11 +273,8 @@ def count_codes_threshold(code_parts, lower_count: int):
     if not code_parts:  # zero-length chromosome
         return np.empty(0, np.int32), np.empty(0, np.int64)
     s = _sort_only(_concat_pow2(code_parts))
-    keep, runlen, m = _sorted_run_survivors(s, lower_count)
-    m = int(m)
-    out_cap = max(1 << max(m - 1, 1).bit_length(), 1 << 10)
-    out_cap = min(out_cap, s.numel())
-    out_c, out_n = compact_host(*_compact_survivors(s, keep, runlen, out_cap))
+    runs = _sorted_run_survivors(s, lower_count)
+    out_c, out_n = compact_host(*_compact_survivors(runs, _out_cap(int(runs.m), s.numel())))
     return out_c, out_n.astype(np.int64)
 
 
@@ -165,10 +286,9 @@ def count_codes_async(code_parts, lower_count: int, static_cap: int):
         return None
     codes = _concat_pow2(code_parts)
     static_cap = min(static_cap, codes.numel())
-    s = _sort_only(codes)
-    keep, runlen, m = _sorted_run_survivors(s, lower_count)
-    u, c = _compact_survivors(s, keep, runlen, static_cap)
-    return u, c, m
+    runs = _sorted_run_survivors(_sort_only(codes), lower_count)
+    u, c = _compact_survivors(runs, static_cap)
+    return u, c, runs.m
 
 
 def count_codes_collect(handles, lower_count: int, rebuild_parts=None):

@@ -168,18 +168,16 @@ class HitSet:
 
     def _consolidate(self) -> None:
         s = _sort_only(_concat_pow2(self.parts))
-        keep, runlen, m = _sorted_run_survivors(s, 1)
-        cap = min(1 << max(int(m) - 1, 1).bit_length(), s.numel())
-        u, _c = _compact_survivors(s, keep, runlen, max(cap, 1))
+        runs = _sorted_run_survivors(s, 1)
+        cap = min(1 << max(int(runs.m) - 1, 1).bit_length(), s.numel())
+        u, _c = _compact_survivors(runs, max(cap, 1))
         self.parts = [u]
         self.pending = u.numel()
 
     def count(self) -> int:
         if not self.parts:
             return 0
-        s = _sort_only(_concat_pow2(self.parts))
-        _keep, _runlen, m = _sorted_run_survivors(s, 1)
-        return int(m)
+        return int(_sorted_run_survivors(_sort_only(_concat_pow2(self.parts)), 1).m)
 
     def snapshot(self) -> np.ndarray:
         """Distinct hits as a sorted host array (SENTINEL stripped); the

@@ -154,8 +154,8 @@ def _exchange_and_merge(sends: list, devices: list, quota: int):
     for d, dev in enumerate(devices):
         recv_codes = torch.cat([sc[d].to(dev) for sc, _sn in sends])
         recv_counts = torch.cat([sn[d].to(dev) for _sc, sn in sends])
-        s, run_tot, keep, _m = _merge_sorted_runs(recv_codes, recv_counts, 1)
-        out.append(_compact_survivors(s, keep, run_tot, recv_codes.numel()))
+        out.append(_compact_survivors(_merge_sorted_runs(recv_codes, recv_counts, 1),
+                                      recv_codes.numel()))
     return out
 
 

@@ -16,8 +16,10 @@ job's end synchronizes once and adds the stream seconds between each pair
 to ``seconds[path + "@device"]``. On CUDA each span reads the allocator's
 high-water mark (``torch.cuda.max_memory_allocated``; never reset here) at
 both ends, and the innermost span that raised it is kept with its bytes.
-The job's end logs one ``[perf]`` line of every path's calls, host and
-device seconds and that span.
+``count_launch(entry)`` adds one launch of a kernel's C entry to the
+current job's ``launches`` (a no-op where ``span`` is one). The job's end
+logs one ``[perf]`` line of every path's calls, host and device seconds,
+that span, and the launches by entry.
 
 ``trace(logdir)`` records the host's operators and the card's kernels
 (CPU and, where CUDA is available, CUDA activities) and writes one Chrome
@@ -103,13 +105,14 @@ def _mark(path: str, seconds: float) -> None:
 
 class Spans:
     """The spans of one job: ``seconds`` (host seconds by path, and stream
-    seconds by ``path@device``), ``calls`` by path, and ``peak_path`` /
+    seconds by ``path@device``), ``calls`` by path, ``peak_path`` /
     ``peak_bytes``, the innermost span that last raised the card's memory
-    high-water mark."""
+    high-water mark, and ``launches``, kernel launches by C entry."""
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
         self.calls: dict[str, int] = {}
+        self.launches: dict[str, int] = {}
         self.peak_path: str | None = None
         self.peak_bytes = 0
         self._stack: list[str] = []
@@ -159,17 +162,32 @@ class Spans:
 
         peak = (f"; peak {self.peak_bytes} B in {self.peak_path}"
                 if self.peak_path is not None else "")
-        logger.info("[perf] spans (path calls host_s [device_s]): %s%s",
-                    "; ".join(one(p) for p in sorted(self.calls)), peak)
+        launches = "".join(f"; launches {e} {n}" for e, n in sorted(self.launches.items()))
+        logger.info("[perf] spans (path calls host_s [device_s]): %s%s%s",
+                    "; ".join(one(p) for p in sorted(self.calls)), peak, launches)
+
+
+def _current() -> Spans | None:
+    """The current job's recorder on this thread, or None."""
+    rec = _CURRENT.get()
+    if rec is None or rec._owner != threading.get_ident():
+        return None
+    return rec
 
 
 def span(name: str, device: bool = False):
     """A span of the current job's recorder; a no-op outside a job and on
     any thread but the job's."""
-    rec = _CURRENT.get()
-    if rec is None or rec._owner != threading.get_ident():
-        return _NOOP
-    return _Span(rec, name, device)
+    rec = _current()
+    return _NOOP if rec is None else _Span(rec, name, device)
+
+
+def count_launch(entry: str) -> None:
+    """One launch of the C entry ``entry`` in the current job's
+    ``launches``; a no-op outside a job and on any thread but the job's."""
+    rec = _current()
+    if rec is not None:
+        rec.launches[entry] = rec.launches.get(entry, 0) + 1
 
 
 @contextlib.contextmanager

@@ -77,37 +77,98 @@ def test_k_above_15_not_ported(genomes):
             assert np.array_equal(a.codes, b.codes) and np.array_equal(a.counts, b.counts)
 
 
-@pytest.mark.parametrize("n", [1, 37, 1024, 5000])
-def test_sort_rle_identical(n):
-    rng = np.random.default_rng(n)
-    x = rng.integers(0, 40, size=n).astype(np.int32)
-    x[rng.random(n) < 0.2] = tc.SENTINEL
+TILE = 4096  # keys a block of the run kernel (csrc/runs.cu)
+
+
+def _codes(n: int, kind: str, seed: int) -> np.ndarray:
+    """``random``: 40 values and 20% SENTINEL; ``one_run``: one value
+    throughout; ``all_sentinel``; ``long_runs``: runs of ~1,000, across the
+    run kernel's tiles, and 5% SENTINEL."""
+    rng = np.random.default_rng(seed)
+    if kind == "one_run":
+        return np.full(n, 7, np.int32)
+    if kind == "all_sentinel":
+        return np.full(n, tc.SENTINEL, np.int32)
+    x = rng.integers(0, 40 if kind == "random" else max(n // 1000, 1), size=n).astype(np.int32)
+    x[rng.random(n) < (0.2 if kind == "random" else 0.05)] = tc.SENTINEL
+    return x
+
+
+@pytest.mark.parametrize("n,kind", [
+    (1, "random"), (2, "random"), (37, "random"), (1024, "random"), (5000, "random"),
+    (TILE - 1, "random"), (TILE, "random"), (TILE + 1, "random"),
+    (2, "one_run"), (TILE + 1, "one_run"), (1, "all_sentinel"), (TILE + 1, "all_sentinel"),
+    (3 * TILE + 5, "long_runs"),
+])
+def test_sort_rle_identical(n, kind):
+    x = _codes(n, kind, n)
     ju, jn = (np.asarray(a) for a in jc.sort_rle(x))
     tu, tn = (a.numpy() for a in tc.sort_rle(torch.from_numpy(x)))
     assert np.array_equal(ju, tu) and np.array_equal(jn, tn)
 
 
-@pytest.mark.parametrize("lower", [1, 3])
-def test_merge_rle_many_identical(lower):
+@pytest.mark.parametrize("lower,kind", [
+    (1, "random"), (3, "random"),
+    (10_000, "random"),     # above every total
+    (1, "zero_counts"),     # runs of zero counts are dropped (total > 0)
+    (2, "long_runs"),       # runs across the run kernel's tiles
+])
+def test_merge_rle_many_identical(lower, kind):
     rng = np.random.default_rng(lower)
-    parts = [jc.sort_rle(rng.integers(0, 300, size=m).astype(np.int32))
-             for m in (100, 257, 64)]
+    hi = 300 if kind != "long_runs" else 4
+    sizes = (100, 257, 64) if kind != "long_runs" else (TILE + 1, 2 * TILE - 1, 64)
+    parts = [jc.sort_rle(rng.integers(0, hi, size=m).astype(np.int32)) for m in sizes]
+    if kind == "zero_counts":
+        parts = [(u, np.where(np.asarray(u) % 3 == 0, 0, np.asarray(c)).astype(np.int32))
+                 for u, c in parts]
     ju, jn = (np.asarray(a) for a in jc.merge_rle_many(parts, lower))
     tparts = [tuple(torch.from_numpy(np.array(a)) for a in p) for p in parts]
     tu, tn = (a.numpy() for a in tc.merge_rle_many(tparts, lower))
     assert np.array_equal(ju, tu) and np.array_equal(jn, tn)
 
 
-def test_async_cap_overflow_recounts_exactly():
-    rng = np.random.default_rng(7)
-    parts = [torch.from_numpy(rng.integers(0, 5000, size=3000).astype(np.int32))
-             for _ in range(3)]
-    ref = tc.count_codes_threshold(parts, 2)
-    handles = tc.count_codes_async(parts, 2, static_cap=16)  # far too small
-    got = tc.count_codes_collect(handles, 2, rebuild_parts=lambda: parts)
+@pytest.mark.parametrize("lower,kind", [
+    (2, "random"), (1, "one_run"), (2, "all_sentinel"),
+    (10_000, "random"),     # above every count
+    (2, "long_runs"),
+])
+def test_async_cap_overflow_recounts_exactly(lower, kind):
+    parts = [torch.from_numpy(_codes(3000, kind, 7 + i)) for i in range(3)]
+    if kind == "random":
+        rng = np.random.default_rng(7)
+        parts = [torch.from_numpy(rng.integers(0, 5000, size=3000).astype(np.int32))
+                 for _ in range(3)]
+    ref = tc.count_codes_threshold(parts, lower)
+    handles = tc.count_codes_async(parts, lower, static_cap=16)  # far too small
+    got = tc.count_codes_collect(handles, lower, rebuild_parts=lambda: parts)
     assert np.array_equal(ref[0], got[0]) and np.array_equal(ref[1], got[1])
-    jref = jc.count_codes_threshold([np.asarray(p) for p in parts], 2)
+    jref = jc.count_codes_threshold([np.asarray(p) for p in parts], lower)
     assert np.array_equal(ref[0], jref[0]) and np.array_equal(ref[1], jref[1])
+
+
+def test_no_route_of_counting_or_mapping_takes_cummax(genomes, monkeypatch):
+    """Counting at k 15 by the fast path and the accumulator path (a tiny
+    device budget: pre-merges on device) and mapping's hit sets, with
+    torch.cummax made to raise: no route still calls the scan."""
+    from subphaser_torch.ops.mapbins import HitSet
+
+    def refuse(*_a, **_k):
+        raise AssertionError("torch.cummax called")
+
+    jg, tg = genomes
+    kw = dict(lower_count=3, tile_bases=1 << 14)
+    js = j_count_genome(jg, 15, **kw)
+    monkeypatch.setattr(torch, "cummax", refuse)
+    monkeypatch.setattr(torch.Tensor, "cummax", refuse)
+    for budget in (1 << 28, 1 << 15):
+        _same_spectra(js, t_count_genome(tg, 15, device="cpu", device_budget=budget, **kw))
+    hits = HitSet(budget=1 << 10, device="cpu")
+    rng = np.random.default_rng(3)
+    parts = [np.unique(rng.integers(0, 5000, size=800)).astype(np.int32) for _ in range(4)]
+    for p in parts:
+        hits.add(p)
+    assert hits.count() == np.unique(np.concatenate(parts)).size
+    assert np.array_equal(hits.snapshot(), np.unique(np.concatenate(parts)))
 
 
 def test_build_matrix_identical(genomes):

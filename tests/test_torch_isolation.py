@@ -48,7 +48,7 @@ def test_no_jax_or_reference_package_in_sources():
              + [ROOT / "chip_smoke.py", TOOL, TOOL.with_name("profile_sort_primitives_torch.py"),
                 TOOL.with_name("profile_cluster_stages_torch.py"),
                 TOOL.with_name("profile_warp_stages_torch.py"),
-                TOOL.with_name("ab_phase_main.py")])
+                TOOL.with_name("ab_phase_main.py"), TOOL.with_name("bench_runs_torch.py")])
     assert len(files) > 35
     names = {p.name for p in files}
     assert {"kmer_pair.py", "count_pair.py", "mapbins_pair.py", "sort_primitives.py",
@@ -56,7 +56,7 @@ def test_no_jax_or_reference_package_in_sources():
             "ltr_native.cpp", "records.py", "native.py", "detect.py", "classify.py",
             "age.py", "features.py", "colors.py", "msa.py", "tree.py",
             "tree_counts.cu", "anchors.py", "anchors.cu", "align.py", "cs.py", "paf.py",
-            "circos.py", "profiling.py"} <= names
+            "circos.py", "profiling.py", "runs.cu", "bench_runs_torch.py"} <= names
     for path in files:
         text = path.read_text()
         assert not _FORBIDDEN.search(text), path
@@ -98,9 +98,10 @@ def test_sort_wrapper_refuses_other_devices(n):
 
 
 def test_every_kernel_source_is_built_and_wrapped():
-    """Each csrc/*.cu and csrc/*.cpp is a build target (nvcc and g++), and
-    the sort sources are loaded by the sort wrappers (no library sort on
-    the radix route)."""
+    """Each csrc/*.cu and csrc/*.cpp is a build target (nvcc and g++), the
+    sort sources are loaded by the sort wrappers (no library sort on the
+    radix route), and the run kernel by ops/count, whose run passes and
+    mapping's take no prefix maximum."""
     from subphaser_torch import kernels
 
     assert {pathlib.Path(p).name for p in kernels.SOURCES.values()} == {
@@ -114,6 +115,9 @@ def test_every_kernel_source_is_built_and_wrapped():
     cu = (PORT / "csrc" / "radix_sort.cu").read_text()
     for banned in ("cub", "thrust"):
         assert not re.search(rf"#include\s*<{banned}", cu), banned
+    assert 'kernels.load("runs")' in (PORT / "ops" / "count.py").read_text()
+    for name in ("count.py", "mapbins.py"):
+        assert "cummax" not in (PORT / "ops" / name).read_text(), name
 
 
 def test_primitive_wrappers_refuse_other_devices():

@@ -3,6 +3,7 @@ spans, summed host seconds and calls, a no-op outside a job and on other
 threads, no device keys on the CPU, the ``[perf]`` line at a job's end, and
 the counting passes' paths under counting and under mapping."""
 
+import contextvars
 import logging
 import threading
 import time
@@ -91,8 +92,6 @@ def test_no_op_on_another_thread():
 
 
 def test_no_op_on_another_thread_that_shares_the_context():
-    import contextvars
-
     rec = Spans()
     seen = []
     with rec.job(CPU):
@@ -117,15 +116,25 @@ def test_no_device_keys_on_the_cpu(device):
 
 
 def test_job_end_logs_one_perf_line(caplog):
+    """Paths with their calls, and kernel launches by C entry, counted for
+    the job on its thread only."""
     rec = Spans()
+    profiling.count_launch("rn_count")  # outside a job: not counted
     with caplog.at_level(logging.INFO, logger="subphaser_torch"):
         with rec.job(CPU):
             with span("pack"):
                 with span("read"):
-                    pass
+                    profiling.count_launch("rn_count")
+            ctx = contextvars.copy_context()
+            t = threading.Thread(target=ctx.run, args=(profiling.count_launch, "rn_write"))
+            t.start()
+            t.join()
+            profiling.count_launch("rn_count")
     lines = [r.getMessage() for r in caplog.records if r.getMessage().startswith("[perf]")]
     assert len(lines) == 1
     assert "pack 1 " in lines[0] and "pack/read 1 " in lines[0]
+    assert rec.launches == {"rn_count": 2}
+    assert lines[0].endswith("; launches rn_count 2")
 
 
 def test_failed_job_logs_no_perf_line(caplog):
