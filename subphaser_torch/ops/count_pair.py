@@ -10,6 +10,12 @@ word only, which is exact for canonical codes even at k = 31 (see
 ops/kmer_pair). Compaction keeps the survivors of a sorted array with a
 boolean mask, which yields the same bits as the JAX package's sort-based
 compaction: survivors of a sorted array are already in order.
+
+Each pass is a span (utils/profiling) at the paths of ops/count's int32
+passes, relative to its caller's step: ``codes``, ``sort`` (keys-only
+int64 sorts, whose keys add to the counter ``sort@int64_keys``), ``runs``,
+``compact``, ``merge`` (its compaction ``merge/compact``) are device spans;
+``collect`` is each read-back to the host and the host merge.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from subphaser_torch.ops.count import _pad_to, merge_host
 from subphaser_torch.ops.kmer import SENTINEL
 from subphaser_torch.ops.kmer_pair import PAD64, combine64_t, kmer_codes64, split64_t
+from subphaser_torch.utils.profiling import count, span
 
 
 def _is_pad(code: torch.Tensor) -> torch.Tensor:
@@ -29,29 +36,39 @@ def _is_pad(code: torch.Tensor) -> torch.Tensor:
 def _sorted_pair_survivors(s: torch.Tensor, lower: int):
     """Sorted int64 codes -> (keep mask at run ends, int32 run lengths,
     survivor count)."""
-    n = s.numel()
-    iota = torch.arange(n, dtype=torch.int32, device=s.device)
-    start = torch.ones(n, dtype=torch.bool, device=s.device)
-    start[1:] = s[1:] != s[:-1]
-    end = torch.ones(n, dtype=torch.bool, device=s.device)
-    end[:-1] = s[:-1] != s[1:]
-    last_start = torch.cummax(torch.where(start, iota, -1), 0).values
-    runlen = iota - last_start + 1
-    keep = end & (runlen >= lower) & ~_is_pad(s)
-    return keep, runlen, keep.sum()
+    with span("runs", device=True):
+        n = s.numel()
+        iota = torch.arange(n, dtype=torch.int32, device=s.device)
+        start = torch.ones(n, dtype=torch.bool, device=s.device)
+        start[1:] = s[1:] != s[:-1]
+        end = torch.ones(n, dtype=torch.bool, device=s.device)
+        end[:-1] = s[:-1] != s[1:]
+        last_start = torch.cummax(torch.where(start, iota, -1), 0).values
+        runlen = iota - last_start + 1
+        keep = end & (runlen >= lower) & ~_is_pad(s)
+        return keep, runlen, keep.sum()
 
 
 def _compact_survivors_pair(s, keep, run_tot, cap: int):
     """Survivor (hi, lo, counts), pad-pair/0-padded or cut to ``cap``."""
-    hi, lo = split64_t(_pad_to(s[keep], cap, PAD64))
-    return hi, lo, _pad_to(run_tot[keep].to(torch.int32), cap, 0)
+    with span("compact", device=True):
+        hi, lo = split64_t(_pad_to(s[keep], cap, PAD64))
+        return hi, lo, _pad_to(run_tot[keep].to(torch.int32), cap, 0)
 
 
 def _codes64_batch(words, vwords, k: int, n_pos_words: int) -> torch.Tensor:
-    if words.dim() == 1:
-        return kmer_codes64(words, vwords, k, n_pos_words).reshape(-1)
-    return torch.cat([kmer_codes64(w, v, k, n_pos_words).reshape(-1)
-                      for w, v in zip(words, vwords)])
+    with span("codes", device=True):
+        if words.dim() == 1:
+            return kmer_codes64(words, vwords, k, n_pos_words).reshape(-1)
+        return torch.cat([kmer_codes64(w, v, k, n_pos_words).reshape(-1)
+                          for w, v in zip(words, vwords)])
+
+
+def _sort64(code: torch.Tensor) -> torch.Tensor:
+    """Keys-only ascending sort of int64 keys."""
+    with span("sort", device=True):
+        count("int64_keys", code.numel())
+        return torch.sort(code).values
 
 
 def sort_rle_pair(hi: torch.Tensor, lo: torch.Tensor):
@@ -60,7 +77,7 @@ def sort_rle_pair(hi: torch.Tensor, lo: torch.Tensor):
 
 
 def _sort_rle64(code: torch.Tensor):
-    s = torch.sort(code).values
+    s = _sort64(code)
     keep, runlen, _m = _sorted_pair_survivors(s, 1)
     return _compact_survivors_pair(s, keep, runlen, s.numel())
 
@@ -111,18 +128,20 @@ def merge_rle_many_pair(parts, lower_count: int = 1):
     survivor count (see count.merge_rle_many)."""
     if len(parts) == 1 and lower_count <= 1:
         return parts[0]
-    code = _concat_pad_pow2(parts)
-    counts = _pad_to(torch.cat([p[2] for p in parts]), code.numel(), 0)
-    s, run_tot, keep, m = _merge_sorted_runs_pair(code, counts, lower_count)
-    return _compact_survivors_pair(s, keep, run_tot, _out_cap(int(m), s.numel()))
+    with span("merge", device=True):
+        code = _concat_pad_pow2(parts)
+        counts = _pad_to(torch.cat([p[2] for p in parts]), code.numel(), 0)
+        s, run_tot, keep, m = _merge_sorted_runs_pair(code, counts, lower_count)
+        return _compact_survivors_pair(s, keep, run_tot, _out_cap(int(m), s.numel()))
 
 
 def _to_host(hi, lo, counts) -> tuple[np.ndarray, np.ndarray]:
     """Device (hi, lo, counts) -> host (int64 codes, int64 counts), pad
     entries dropped."""
-    code = combine64_t(hi, lo)
-    m = ~_is_pad(code)
-    return code[m].cpu().numpy(), counts[m].cpu().numpy().astype(np.int64)
+    with span("collect"):
+        code = combine64_t(hi, lo)
+        m = ~_is_pad(code)
+        return code[m].cpu().numpy(), counts[m].cpu().numpy().astype(np.int64)
 
 
 def count_pair_codes_threshold(parts, lower_count: int):
@@ -131,7 +150,7 @@ def count_pair_codes_threshold(parts, lower_count: int):
     right-sized compaction."""
     if not parts:
         return np.empty(0, np.int64), np.empty(0, np.int64)
-    s = torch.sort(_concat_pad_pow2(parts)).values
+    s = _sort64(_concat_pad_pow2(parts))
     keep, runlen, m = _sorted_pair_survivors(s, lower_count)
     return _to_host(*_compact_survivors_pair(s, keep, runlen, _out_cap(int(m), s.numel())))
 
@@ -170,8 +189,9 @@ class PairSpectrumAccumulator:
         self.parts = []
         self.pending = 0
         self.spilled = []
-        codes, counts = merge_host(parts)
-        if lower_count > 1:
-            keep = counts >= lower_count
-            codes, counts = codes[keep], counts[keep]
+        with span("collect"):
+            codes, counts = merge_host(parts)
+            if lower_count > 1:
+                keep = counts >= lower_count
+                codes, counts = codes[keep], counts[keep]
         return codes, counts

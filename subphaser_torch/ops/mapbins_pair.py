@@ -7,7 +7,9 @@ Here the table is one sorted int64 key ``hi << 31 | lo``, so a single
 ``torch.searchsorted`` finds the same entry: the table holds distinct
 codes, hence the first probe hit and the leftmost equal key are the same
 index. That index also feeds the distinct-hit statistic, whose int32 sorts
-go through the bitonic kernel (ops/mapbins.distinct_hits).
+go through the bitonic kernel (ops/mapbins.distinct_hits). Each tile's
+codes, search and hit test are one device span, ``search``, relative to the
+caller's step (utils/profiling; ``map/search`` under mapping).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from subphaser_torch.ops.mapbins import (
     distinct_hits,
     nbins_for_tile,
 )
+from subphaser_torch.utils.profiling import span
 
 
 def max_hi_run(sig_codes64: np.ndarray) -> int:
@@ -43,14 +46,15 @@ def map_tile_bins_pair(words, vwords, sig_codes64, sig_sg, start: int, *, k: int
 
     ``sig_codes64``: sorted distinct int64 codes (m >= 1); ``sig_sg``: int32
     SG index per code."""
-    fcodes = forward_codes64(words, vwords, k, n_pos_words)  # (16, W)
-    m = sig_codes64.numel()
-    idx = torch.searchsorted(sig_codes64, fcodes.reshape(-1)).reshape(fcodes.shape)
-    idx_c = idx.clamp_max(m - 1)
-    # pad = the (SENTINEL, SENTINEL) PAIR: at k = 31 forward codes can
-    # legitimately carry hi == SENTINEL (T^15[G/T]-prefixed windows); only
-    # exact T^31 windows alias the pad (see ops/kmer_pair)
-    hit = (idx < m) & (sig_codes64[idx_c] == fcodes) & (fcodes != PAD64)
+    with span("search", device=True):
+        fcodes = forward_codes64(words, vwords, k, n_pos_words)  # (16, W)
+        m = sig_codes64.numel()
+        idx = torch.searchsorted(sig_codes64, fcodes.reshape(-1)).reshape(fcodes.shape)
+        idx_c = idx.clamp_max(m - 1)
+        # pad = the (SENTINEL, SENTINEL) PAIR: at k = 31 forward codes can
+        # legitimately carry hi == SENTINEL (T^15[G/T]-prefixed windows);
+        # only exact T^31 windows alias the pad (see ops/kmer_pair)
+        hit = (idx < m) & (sig_codes64[idx_c] == fcodes) & (fcodes != PAD64)
     bin_counts = bin_counts_auto(
         hit, sig_sg[idx_c], start, bin_size=bin_size, n_sg=n_sg,
         nbins_tile=nbins_tile, aligned16=bin_size % 16 == 0,

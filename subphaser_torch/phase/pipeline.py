@@ -123,7 +123,9 @@ class Pipeline:
         self._parse_plot_options()
         self._parse_aligner_options()
         self._parse_tool_options()
-        # every step's and span's seconds by path (utils/profiling)
+        # every step's and span's seconds by path, stream seconds by
+        # ``path@device`` and the spans' counters by ``path@<name>``
+        # (utils/profiling)
         self.spans = Spans()
         self.step_seconds: dict[str, float] = self.spans.seconds
         self.map_dense = None

@@ -17,9 +17,10 @@ to ``seconds[path + "@device"]``. On CUDA each span reads the allocator's
 high-water mark (``torch.cuda.max_memory_allocated``; never reset here) at
 both ends, and the innermost span that raised it is kept with its bytes.
 ``count_launch(entry)`` adds one launch of a kernel's C entry to the
-current job's ``launches`` (a no-op where ``span`` is one). The job's end
-logs one ``[perf]`` line of every path's calls, host and device seconds,
-that span, and the launches by entry.
+current job's ``launches``, and ``count(name, n)`` adds ``n`` to the open
+span's counter ``seconds[path + "@" + name]`` (both no-ops where ``span`` is
+one). The job's end logs one ``[perf]`` line of every path's calls, host
+and device seconds, that span, the counters and the launches by entry.
 
 ``trace(logdir)`` records the host's operators and the card's kernels
 (CPU and, where CUDA is available, CUDA activities) and writes one Chrome
@@ -104,8 +105,9 @@ def _mark(path: str, seconds: float) -> None:
 
 
 class Spans:
-    """The spans of one job: ``seconds`` (host seconds by path, and stream
-    seconds by ``path@device``), ``calls`` by path, ``peak_path`` /
+    """The spans of one job: ``seconds`` (host seconds by path, stream
+    seconds by ``path@device`` and counters by ``path@<name>``), ``calls``
+    by path, ``peak_path`` /
     ``peak_bytes``, the innermost span that last raised the card's memory
     high-water mark, and ``launches``, kernel launches by C entry."""
 
@@ -162,9 +164,11 @@ class Spans:
 
         peak = (f"; peak {self.peak_bytes} B in {self.peak_path}"
                 if self.peak_path is not None else "")
+        counters = "".join(f"; counter {key} {n}" for key, n in sorted(self.seconds.items())
+                           if "@" in key and not key.endswith(DEVICE_SUFFIX))
         launches = "".join(f"; launches {e} {n}" for e, n in sorted(self.launches.items()))
-        logger.info("[perf] spans (path calls host_s [device_s]): %s%s%s",
-                    "; ".join(one(p) for p in sorted(self.calls)), peak, launches)
+        logger.info("[perf] spans (path calls host_s [device_s]): %s%s%s%s",
+                    "; ".join(one(p) for p in sorted(self.calls)), peak, counters, launches)
 
 
 def _current() -> Spans | None:
@@ -188,6 +192,16 @@ def count_launch(entry: str) -> None:
     rec = _current()
     if rec is not None:
         rec.launches[entry] = rec.launches.get(entry, 0) + 1
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the counter ``name`` of the current job's open span,
+    ``seconds[path + "@" + name]``; a no-op outside a span of a job and on
+    any thread but the job's."""
+    rec = _current()
+    if rec is not None and rec._stack:
+        key = f"{rec._stack[-1]}@{name}"
+        rec.seconds[key] = rec.seconds.get(key, 0) + n
 
 
 @contextlib.contextmanager

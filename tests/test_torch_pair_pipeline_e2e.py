@@ -20,10 +20,12 @@ KW = dict(k=17, min_freq=40, replicates=10, tile_bases=1 << 16, figfmt="png",
 PREFIX = "k17_q40_f2"
 EXACT = [".kmer.mat", ".sig.kmer-subgenome.tsv", ".subgenome.bin.count",
          ".bin.enrich", ".bin.group"]
-# the nested spans of the pair-code path (no int32 count passes, no table)
+# the nested spans of the pair-code path: its own count passes (the fast
+# path, one sort a chromosome) and lookups, no table
 SUB_SPANS = {"pack/read", "pack/save", "count/key", "count/tiles", "count/stage",
+             "count/codes", "count/sort", "count/runs", "count/compact", "count/collect",
              "count/save", "filter/select", "filter/write", "cluster/kmeans", "cluster/tests",
-             "cluster/write", "map/sort", "map/runs", "map/write"}
+             "cluster/write", "map/search", "map/sort", "map/runs", "map/write"}
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """The span recorder (subphaser_torch/utils/profiling.py): paths of nested
 spans, summed host seconds and calls, a no-op outside a job and on other
-threads, no device keys on the CPU, the ``[perf]`` line at a job's end, and
-the counting passes' paths under counting and under mapping."""
+threads, no device keys on the CPU, the ``[perf]`` line at a job's end, the
+counting passes' paths under counting and under mapping, the pair-code
+path's spans at the same paths and its sorted-keys counter."""
 
 import contextvars
 import logging
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from span_paths import assert_children_within_parents
+from span_paths import assert_children_within_parents, sub_spans
 from subphaser_torch.utils import profiling
 from subphaser_torch.utils.profiling import Spans, span
 
@@ -234,3 +235,134 @@ def test_device_spans_and_the_peak_on_the_card():
     assert "count/stage@device" not in rec.seconds and "count@device" not in rec.seconds
     assert rec.peak_path == "count/runs", (rec.peak_path, rec.peak_bytes)
     assert rec.peak_bytes >= 2 * x.numel() * 8, rec.peak_bytes
+
+
+def _pair_tiles(seed: int, tile: int = 1024):
+    """Packed tiles of a random chromosome with repeats, at k = 17."""
+    from subphaser_torch.io.genome import PackedGenome
+
+    rng = np.random.default_rng(seed)
+    unit = "".join(rng.choice(list("ACGT"), 150))
+    tail = "".join(rng.choice(list("ACGT"), 3000))
+    g = PackedGenome.from_dict({"c": unit * 8 + tail})
+    return [(torch.from_numpy(t.words), torch.from_numpy(t.vwords))
+            for t in g.tiles(17, tile_bases=tile)]
+
+
+def test_pair_sorts_count_the_keys_of_their_batches():
+    """``count/sort@int64_keys`` adds every key of each keys-only int64 sort:
+    a batch's positions on the accumulator path, the power-of-two padded
+    concatenation on the fast path; the merges' key-value sorts add none."""
+    from subphaser_torch.ops import count_pair
+
+    tiles = _pair_tiles(4)
+    batches = [(torch.stack([w for w, _ in tiles[i:i + 2]]),
+                torch.stack([v for _, v in tiles[i:i + 2]])) for i in range(0, 4, 2)]
+    rec = Spans()
+    with rec.job(CPU):
+        with rec.span("count"):
+            acc = count_pair.PairSpectrumAccumulator(device_budget=1 << 12)
+            for words, vwords in batches:
+                acc.add(*count_pair.count_tile_batch_pair(words, vwords, 17, 1024 // 16))
+            acc.finish(lower_count=2)
+    held = sum(w.shape[0] * 1024 for w, _ in batches)
+    assert rec.seconds["count/sort@int64_keys"] == held == 4096
+    assert rec.calls["count/sort"] == len(batches) and rec.calls["count/merge"] >= 1
+
+    rec = Spans()
+    with rec.job(CPU):
+        with rec.span("count"):
+            parts = [count_pair.extract_pair_codes_batch(w, v, 17, 1024 // 16)
+                     for w, v in tiles[:3]]
+            count_pair.count_pair_codes_threshold(parts, 2)
+    assert rec.seconds["count/sort@int64_keys"] == 4096  # 3 x 1024 keys padded
+    assert "count/merge" not in rec.calls
+
+
+def test_a_counter_outside_a_span_is_not_recorded(caplog):
+    rec = Spans()
+    profiling.count("int64_keys", 5)  # outside a job
+    with caplog.at_level(logging.INFO, logger="subphaser_torch"):
+        with rec.job(CPU):
+            profiling.count("int64_keys", 7)  # no span open
+            with span("count"):
+                with span("sort"):
+                    profiling.count("int64_keys", 3)
+                    profiling.count("int64_keys", 4)
+    assert rec.seconds["count/sort@int64_keys"] == 7
+    assert set(rec.seconds) == {"count/sort", "count", "count/sort@int64_keys"}
+    (line,) = [r.getMessage() for r in caplog.records if r.getMessage().startswith("[perf]")]
+    assert "; counter count/sort@int64_keys 7" in line
+
+
+# the nested spans every core job records, whatever its k
+CORE_SPANS = {"pack/read", "pack/save", "count/key", "count/tiles", "count/stage",
+              "count/save", "filter/select", "filter/write", "cluster/kmeans",
+              "cluster/tests", "cluster/write", "map/sort", "map/runs", "map/write"}
+INT32_SPANS = CORE_SPANS | {"count/codes", "count/sort", "count/runs", "count/compact",
+                            "count/collect", "map/table", "map/compact"}
+PAIR_FAST_SPANS = CORE_SPANS | {"count/codes", "count/sort", "count/runs", "count/compact",
+                                "count/collect", "map/search"}
+PAIR_ACC_SPANS = PAIR_FAST_SPANS | {"count/merge", "count/merge/compact"}
+
+
+@pytest.fixture(scope="module")
+def synthetic(tmp_path_factory):
+    from make_synthetic import make_genome
+
+    base = tmp_path_factory.mktemp("spans_jobs")
+    genome, cfg = make_genome(str(base), n_sets=2, chrom_size=80_000)
+    return base, genome, cfg
+
+
+def _core_job(synthetic, k: int, budget: int | None, monkeypatch):
+    """One core job on the CPU; ``budget`` replaces the device budget that
+    ``plan_budgets`` gives."""
+    from subphaser_torch.phase import pipeline
+
+    base, genome, cfg = synthetic
+    if budget is not None:
+        plan = pipeline.plan_budgets
+
+        def low_budget(*args, **kwargs):
+            tile, _budget, low_mem, batch = plan(*args, **kwargs)
+            return tile, budget, low_mem, batch
+
+        monkeypatch.setattr(pipeline, "plan_budgets", low_budget)
+    tag = f"k{k}_{budget}"
+    return pipeline.Pipeline([genome], [cfg], outdir=str(base / f"out_{tag}"),
+                             tmpdir=str(base / f"tmp_{tag}"), device="cpu", k=k,
+                             min_freq=40, replicates=10, tile_bases=1 << 16,
+                             disable_ltr=True, disable_circos=True,
+                             window_size=40_000).run()
+
+
+@pytest.mark.parametrize("k,budget,want", [(15, None, INT32_SPANS),
+                                           (17, None, PAIR_FAST_SPANS),
+                                           (17, 1 << 16, PAIR_ACC_SPANS)],
+                         ids=["int32", "pair_fast", "pair_accumulator"])
+def test_core_job_spans_by_counting_path(synthetic, monkeypatch, k, budget, want):
+    """A k 17 job records the pair path's passes at the int32 path's paths
+    (``count/merge`` on the accumulator path, a 2^16 budget under the 2^17
+    positions of a chromosome), its lookups as ``map/search`` (one a tile),
+    no device keys on the CPU, and the int32 path's set stays as it was."""
+    pipe = _core_job(synthetic, k, budget, monkeypatch)
+    seconds = pipe.step_seconds
+    assert sub_spans(seconds) == want
+    assert not any(p.endswith("@device") for p in seconds)
+    assert_children_within_parents(seconds)
+    calls = pipe.spans.calls
+    tiles = list(pipe.genome.tiles(k, tile_bases=1 << 16))
+    if k == 15:
+        assert not any("@" in p for p in seconds)
+        return
+    assert calls["map/search"] == len(tiles)
+    per_chrom = {}
+    for t in tiles:
+        per_chrom[t.chrom_index] = per_chrom.get(t.chrom_index, 0) + (1 << 16)
+    if budget is None:  # one sort a chromosome, padded to a power of two
+        want_keys = sum(1 << (n - 1).bit_length() for n in per_chrom.values())
+    else:  # one sort a batch of one tile
+        want_keys = len(tiles) << 16
+        assert calls["count/merge"] >= len(per_chrom)
+    assert seconds["count/sort@int64_keys"] == want_keys
