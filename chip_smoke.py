@@ -24,7 +24,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
 2b. runs    the run-length kernel of ops/count (csrc/runs.cu: run_scan and
             run_compact) by tools/bench_runs_torch.py at 2^24 keys (a
             low-memory batch), 2^27 (the fast path, a 5-million-key
-            SENTINEL run) and 2^28 weighted entries (a merge), bit-exact
+            SENTINEL run) and 2^28 weighted entries (a merge), and its
+            64-bit instantiation on int64 pair codes at 2^24 keys (a batch
+            at k > 15), 2^28 weighted entries (a pair merge) and 2^27 keys
+            at lower 3 with a 54-million-key PAD64 run (the fast path of
+            phase main_k17), bit-exact
             against its plain version and the torch.cummax chain it
             replaced; prints the three's times and the bytes bound;
 3. primitives  the sort-primitives tool (tools/bench_sort_primitives_torch.py)
@@ -1776,7 +1780,7 @@ def phase_main(k: int = 15) -> dict:
     launches = sort_smem.launches
     by_route = dict(sort_smem.route_launches)
     run_launches = {e: n - run_launches0[e] for e, n in count.entry_launches.items()}
-    if k == 15 and not run_launches["rn_count"]:
+    if not run_launches["rn_count64" if k > 15 else "rn_count"]:
         raise RuntimeError(f"the run kernel was not launched on the {phase} path")
     for suffix in CORE_FILES:
         if not os.path.getsize(pipe.para_prefix + suffix):
@@ -3137,6 +3141,8 @@ def main() -> int:
         # a hand-written kernel of an XLA-lowered function (jax.lax.cummax)
         "replaces": tpu_kernel_site("*/ops/count.py", "def _sorted_run_survivors"),
         "launches": main_res["run_launches"],
+        "launches_by_path": {"main": main_res["run_launches"],
+                             "main_k17": k17_res["run_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in res["runs"].values()),
         **{key: lead[key] for key in ("kernel_ms", "count_ms", "plain_ms", "cummax_ms",
                                       "bound_ms", "share_of_bound")},

@@ -7,11 +7,13 @@ key-value sort (``torch.sort(stable=True)``; the JAX package uses XLA's sort
 there too) and the run totals of the sorted counts. Run lengths and run
 totals come from the positions of consecutive run ends (:func:`run_scan`,
 :func:`run_compact`: ``csrc/runs.cu`` on a CUDA tensor, their plain
-versions on a CPU tensor), thresholded and compacted in order, which yields
-the same bits as the JAX package's prefix-maximum scan and sort-based
-compaction. Each pass is a device span (utils/profiling) named relative to
-its caller's step: ``codes``, ``sort``, ``runs``, ``compact`` and ``merge``
-(``count/runs`` under counting, ``map/runs`` under mapping).
+versions on a CPU tensor; int32 keys here, the int64 pair codes of
+ops/count_pair by the same kernel's 64-bit instantiation), thresholded and
+compacted in order, which yields the same bits as the JAX package's
+prefix-maximum scan and sort-based compaction. Each pass is a device span
+(utils/profiling) named relative to its caller's step: ``codes``, ``sort``,
+``runs``, ``compact`` and ``merge`` (``count/runs`` under counting,
+``map/runs`` under mapping).
 
 Replaces jellyfish's hash counting (reference Jellyfish.py:697-703) and its
 host dict merge (Jellyfish.py:439-460).
@@ -26,10 +28,14 @@ import numpy as np
 import torch
 
 from subphaser_torch.ops.kmer import SENTINEL, kmer_codes
+from subphaser_torch.ops.kmer_pair import PAD64, split64_t
 from subphaser_torch.ops.sort_smem import sort_int32, sort_int32_pow2
 from subphaser_torch.utils.profiling import count_launch, span
 
-entry_launches = {"rn_count": 0, "rn_write": 0}  # csrc/runs.cu launches by C entry
+# csrc/runs.cu launches by C entry
+entry_launches = {"rn_count": 0, "rn_write": 0, "rn_count64": 0, "rn_write64": 0}
+# its C entries by the keys' dtype: (count, write)
+_ENTRIES = {torch.int32: ("rn_count", "rn_write"), torch.int64: ("rn_count64", "rn_write64")}
 _launch_lock = threading.Lock()
 _lib = None
 
@@ -124,9 +130,11 @@ def runs_lib():
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.rn_scratch_size.argtypes = [i64]
             lib.rn_scratch_size.restype = i64
-            lib.rn_count.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr]
-            lib.rn_write.argtypes = [ptr, ptr, i64, i32, ptr, ptr, i32, ptr, ptr, ptr]
-            for fn in (lib.rn_count, lib.rn_write):
+            for fn in (lib.rn_count, lib.rn_count64):
+                fn.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr]
+                fn.restype = i32
+            for fn in (lib.rn_write, lib.rn_write64):
+                fn.argtypes = [ptr, ptr, i64, i32, ptr, ptr, i32, ptr, ptr, ptr]
                 fn.restype = i32
             lib.rn_error_string.argtypes = [i32]
             lib.rn_error_string.restype = ctypes.c_char_p
@@ -150,11 +158,21 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _is_pad(keys: torch.Tensor) -> torch.Tensor:
+    """The pad keys: SENTINEL of int32 keys; of int64 pair codes those whose
+    hi word is SENTINEL (PAD64 is the pair (SENTINEL, SENTINEL); the hi word
+    alone is exact for canonical codes, see ops/kmer_pair)."""
+    if keys.dtype == torch.int64:
+        return (keys >> 31) == SENTINEL
+    return keys == SENTINEL
+
+
 def run_scan_plain(keys: torch.Tensor, weights: torch.Tensor | None, lower: int):
-    """The plain version of :func:`run_scan`: the survivors' keys and int32
-    totals. Run ends are where a key differs from the next (and the last
-    entry); a run's length is the difference of consecutive run-end
-    positions, its total the difference of the weights' prefix sums there."""
+    """The plain version of :func:`run_scan`: the survivors' keys (of the
+    keys' dtype) and int32 totals. Run ends are where a key differs from the
+    next (and the last entry); a run's length is the difference of
+    consecutive run-end positions, its total the difference of the weights'
+    prefix sums there."""
     n = keys.numel()
     end = torch.ones(n, dtype=torch.bool, device=keys.device)
     end[:-1] = keys[:-1] != keys[1:]
@@ -165,13 +183,13 @@ def run_scan_plain(keys: torch.Tensor, weights: torch.Tensor | None, lower: int)
         at = torch.cumsum(weights, 0, dtype=torch.int64)[ends]
     total = torch.diff(at, prepend=at.new_zeros(1))
     codes = keys[ends]
-    keep = (total >= lower) & (codes != SENTINEL) & (total > 0)
+    keep = (total >= lower) & ~_is_pad(codes) & (total > 0)
     return codes[keep], total[keep].to(torch.int32)
 
 
 def _check_runs_input(keys: torch.Tensor, weights: torch.Tensor | None) -> None:
-    if keys.dtype != torch.int32 or keys.dim() != 1 or not keys.is_contiguous():
-        raise ValueError("run_scan: the keys must be a contiguous 1-D int32 tensor, got "
+    if keys.dtype not in _ENTRIES or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("run_scan: the keys must be a contiguous 1-D int32 or int64 tensor, got "
                          f"{keys.dtype} {tuple(keys.shape)}")
     if weights is not None and (weights.dtype != torch.int32 or weights.shape != keys.shape
                                 or not weights.is_contiguous()
@@ -185,15 +203,16 @@ def _check_runs_input(keys: torch.Tensor, weights: torch.Tensor | None) -> None:
 
 
 def run_scan(keys: torch.Tensor, weights: torch.Tensor | None, lower: int) -> Runs:
-    """The runs of sorted int32 ``keys``: each run's length, or with int32
-    ``weights`` (>= 0, one an entry) the total of its weights, below 2^31;
-    a run survives where total >= lower, its key is not SENTINEL and its
-    total is above 0. Returns a :class:`Runs` whose ``m`` counts the
-    survivors; :func:`run_compact` writes them.
+    """The runs of sorted int32 or int64 ``keys``: each run's length, or with
+    int32 ``weights`` (>= 0, one an entry) the total of its weights, below
+    2^31; a run survives where total >= lower, its key is not the pad
+    (int32: SENTINEL; int64 pair codes: hi word SENTINEL) and its total is
+    above 0. Returns a :class:`Runs` whose ``m`` counts the survivors;
+    :func:`run_compact` writes them.
 
-    A CUDA tensor launches ``rn_count`` of csrc/runs.cu (a memset and one
-    kernel; ``m`` stays on the card); a CPU tensor takes
-    :func:`run_scan_plain`."""
+    A CUDA tensor launches ``rn_count`` (int32 keys) or ``rn_count64``
+    (int64) of csrc/runs.cu (a memset and one kernel; ``m`` stays on the
+    card); a CPU tensor takes :func:`run_scan_plain`."""
     _check_runs_input(keys, weights)
     if keys.device.type == "cpu" or keys.numel() == 0:  # no keys: nothing to launch
         kept = run_scan_plain(keys, weights, lower)
@@ -208,30 +227,41 @@ def run_scan(keys: torch.Tensor, weights: torch.Tensor | None, lower: int) -> Ru
     m = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rn_count(keys.data_ptr(), None if weights is None else weights.data_ptr(),
-                           n, lower, m.data_ptr(), status.data_ptr(), stream)
-    _launched(lib, err, "rn_count")
+        entry = _ENTRIES[keys.dtype][0]
+        err = getattr(lib, entry)(keys.data_ptr(),
+                                  None if weights is None else weights.data_ptr(), n, lower,
+                                  m.data_ptr(), status.data_ptr(), stream)
+    _launched(lib, err, entry)
     return Runs(keys, weights, lower, m, status=status)
 
 
 def run_compact(runs: Runs, cap: int):
-    """The first ``cap`` survivors of :func:`run_scan` in order: (keys,
-    int32 totals), each a new tensor of ``cap`` entries, SENTINEL / 0-padded
-    from the survivor count. A CUDA scan launches ``rn_write`` of
-    csrc/runs.cu; a CPU scan pads or cuts its plain result."""
+    """The first ``cap`` survivors of :func:`run_scan` in order, padded from
+    the survivor count: (keys, int32 totals), the totals 0-padded. The keys
+    are an int32 (cap,) tensor, SENTINEL-padded, or of int64 pair codes an
+    int32 (2, cap) tensor whose rows are the pair's hi and lo words,
+    (SENTINEL, SENTINEL)-padded. A CUDA scan launches ``rn_write`` /
+    ``rn_write64`` of csrc/runs.cu; a CPU scan pads or cuts its plain
+    result."""
+    pair = runs.keys.dtype == torch.int64
     if runs.kept is not None:
-        return _pad_to(runs.kept[0], cap, SENTINEL), _pad_to(runs.kept[1], cap, 0)
+        tot = _pad_to(runs.kept[1], cap, 0)
+        if pair:
+            return torch.stack(split64_t(_pad_to(runs.kept[0], cap, PAD64))), tot
+        return _pad_to(runs.kept[0], cap, SENTINEL), tot
     lib = runs_lib()
     keys, weights = runs.keys, runs.weights
     dev = keys.device
-    out_keys = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_keys = torch.empty((2, cap) if pair else cap, dtype=torch.int32, device=dev)
     out_tot = torch.empty(cap, dtype=torch.int32, device=dev)
+    entry = _ENTRIES[keys.dtype][1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rn_write(keys.data_ptr(), None if weights is None else weights.data_ptr(),
-                           keys.numel(), runs.lower, runs.m.data_ptr(), runs.status.data_ptr(),
-                           cap, out_keys.data_ptr(), out_tot.data_ptr(), stream)
-    _launched(lib, err, "rn_write")
+        err = getattr(lib, entry)(keys.data_ptr(),
+                                  None if weights is None else weights.data_ptr(), keys.numel(),
+                                  runs.lower, runs.m.data_ptr(), runs.status.data_ptr(), cap,
+                                  out_keys.data_ptr(), out_tot.data_ptr(), stream)
+    _launched(lib, err, entry)
     return out_keys, out_tot
 
 
@@ -242,7 +272,8 @@ def _sorted_run_survivors(s: torch.Tensor, lower: int) -> Runs:
 
 
 def _compact_survivors(runs: Runs, cap: int):
-    """Survivor codes + counts, SENTINEL/0-padded or cut to ``cap``."""
+    """Survivor codes + counts, SENTINEL/0-padded or cut to ``cap`` (pair
+    codes: a (2, cap) tensor of hi and lo, see :func:`run_compact`)."""
     with span("compact", device=True):
         return run_compact(runs, cap)
 

@@ -7,9 +7,12 @@ hand-written kernel) become ``torch.sort`` on that key, run boundaries
 compare it, and the host gets int64 codes. The pad is the pair
 (SENTINEL, SENTINEL) = PAD64, which sorts last; pad tests look at the hi
 word only, which is exact for canonical codes even at k = 31 (see
-ops/kmer_pair). Compaction keeps the survivors of a sorted array with a
-boolean mask, which yields the same bits as the JAX package's sort-based
-compaction: survivors of a sorted array are already in order.
+ops/kmer_pair). The run-length passes are ops/count's, whose ``run_scan``
+and ``run_compact`` take int64 keys (``csrc/runs.cu``'s 64-bit
+instantiation on a CUDA tensor, the plain version on a CPU tensor) and
+write the survivors' hi and lo words directly; that yields the same bits as
+the JAX package's prefix-maximum scan and sort-based compaction: survivors
+of a sorted array are already in order.
 
 Each pass is a span (utils/profiling) at the paths of ops/count's int32
 passes, relative to its caller's step: ``codes``, ``sort`` (keys-only
@@ -23,37 +26,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from subphaser_torch.ops.count import _pad_to, merge_host
-from subphaser_torch.ops.kmer import SENTINEL
+from subphaser_torch.ops.count import (
+    _compact_survivors,
+    _is_pad,
+    _merge_sorted_runs,
+    _out_cap,
+    _pad_to,
+    _sorted_run_survivors,
+    merge_host,
+)
 from subphaser_torch.ops.kmer_pair import PAD64, combine64_t, kmer_codes64, split64_t
 from subphaser_torch.utils.profiling import count, span
-
-
-def _is_pad(code: torch.Tensor) -> torch.Tensor:
-    return (code >> 31) == SENTINEL
-
-
-def _sorted_pair_survivors(s: torch.Tensor, lower: int):
-    """Sorted int64 codes -> (keep mask at run ends, int32 run lengths,
-    survivor count)."""
-    with span("runs", device=True):
-        n = s.numel()
-        iota = torch.arange(n, dtype=torch.int32, device=s.device)
-        start = torch.ones(n, dtype=torch.bool, device=s.device)
-        start[1:] = s[1:] != s[:-1]
-        end = torch.ones(n, dtype=torch.bool, device=s.device)
-        end[:-1] = s[:-1] != s[1:]
-        last_start = torch.cummax(torch.where(start, iota, -1), 0).values
-        runlen = iota - last_start + 1
-        keep = end & (runlen >= lower) & ~_is_pad(s)
-        return keep, runlen, keep.sum()
-
-
-def _compact_survivors_pair(s, keep, run_tot, cap: int):
-    """Survivor (hi, lo, counts), pad-pair/0-padded or cut to ``cap``."""
-    with span("compact", device=True):
-        hi, lo = split64_t(_pad_to(s[keep], cap, PAD64))
-        return hi, lo, _pad_to(run_tot[keep].to(torch.int32), cap, 0)
 
 
 def _codes64_batch(words, vwords, k: int, n_pos_words: int) -> torch.Tensor:
@@ -76,10 +59,15 @@ def sort_rle_pair(hi: torch.Tensor, lo: torch.Tensor):
     return _sort_rle64(combine64_t(hi.reshape(-1), lo.reshape(-1)))
 
 
+def _compact_pair(runs, cap: int):
+    """The survivors at the pair boundary: (hi, lo, counts)."""
+    planes, counts = _compact_survivors(runs, cap)
+    return planes[0], planes[1], counts
+
+
 def _sort_rle64(code: torch.Tensor):
     s = _sort64(code)
-    keep, runlen, _m = _sorted_pair_survivors(s, 1)
-    return _compact_survivors_pair(s, keep, runlen, s.numel())
+    return _compact_pair(_sorted_run_survivors(s, 1), s.numel())
 
 
 def count_tile_batch_pair(words, vwords, k: int, n_pos_words: int):
@@ -92,23 +80,6 @@ def extract_pair_codes_batch(words, vwords, k: int, n_pos_words: int):
     return split64_t(_codes64_batch(words, vwords, k, n_pos_words))
 
 
-def _merge_sorted_runs_pair(code, counts, lower: int):
-    """Sort (code, count) pairs and compute run totals: (sorted codes,
-    int32 run totals, keep mask at run ends, survivor count)."""
-    code, order = torch.sort(code, stable=True)
-    counts = counts[order]
-    n = code.numel()
-    start = torch.ones(n, dtype=torch.bool, device=code.device)
-    start[1:] = code[1:] != code[:-1]
-    end = torch.ones(n, dtype=torch.bool, device=code.device)
-    end[:-1] = code[:-1] != code[1:]
-    csum = torch.cumsum(counts, 0, dtype=torch.int64)
-    base = torch.cummax(torch.where(start, csum - counts, -1), 0).values
-    run_tot = csum - base
-    keep = end & (run_tot >= lower) & ~_is_pad(code) & (run_tot > 0)
-    return code, run_tot.to(torch.int32), keep, keep.sum()
-
-
 def _concat_pad_pow2(parts):
     """Concat (hi, lo) parts into int64 codes, PAD64-padded to a power of
     two."""
@@ -119,10 +90,6 @@ def _concat_pad_pow2(parts):
     return _pad_to(combine64_t(hi, lo), cap, PAD64)
 
 
-def _out_cap(m: int, n: int) -> int:
-    return min(max(1 << max(m - 1, 1).bit_length(), 1 << 10), n)
-
-
 def merge_rle_many_pair(parts, lower_count: int = 1):
     """Merge pair spectra in one sort, compacted to the (pow2-bucketed)
     survivor count (see count.merge_rle_many)."""
@@ -131,8 +98,8 @@ def merge_rle_many_pair(parts, lower_count: int = 1):
     with span("merge", device=True):
         code = _concat_pad_pow2(parts)
         counts = _pad_to(torch.cat([p[2] for p in parts]), code.numel(), 0)
-        s, run_tot, keep, m = _merge_sorted_runs_pair(code, counts, lower_count)
-        return _compact_survivors_pair(s, keep, run_tot, _out_cap(int(m), s.numel()))
+        runs = _merge_sorted_runs(code, counts, lower_count)
+        return _compact_pair(runs, _out_cap(int(runs.m), code.numel()))
 
 
 def _to_host(hi, lo, counts) -> tuple[np.ndarray, np.ndarray]:
@@ -151,8 +118,8 @@ def count_pair_codes_threshold(parts, lower_count: int):
     if not parts:
         return np.empty(0, np.int64), np.empty(0, np.int64)
     s = _sort64(_concat_pad_pow2(parts))
-    keep, runlen, m = _sorted_pair_survivors(s, lower_count)
-    return _to_host(*_compact_survivors_pair(s, keep, runlen, _out_cap(int(m), s.numel())))
+    runs = _sorted_run_survivors(s, lower_count)
+    return _to_host(*_compact_pair(runs, _out_cap(int(runs.m), s.numel())))
 
 
 class PairSpectrumAccumulator:

@@ -113,7 +113,7 @@ def test_runs_wrapper_refuses_bad_inputs(device):
     with pytest.raises(ValueError, match="contiguous"):
         count.run_scan(keys[::2], None, 1)
     with pytest.raises(ValueError, match="int32"):
-        count.run_scan(keys.long(), None, 1)
+        count.run_scan(keys.to(torch.int16), None, 1)
     with pytest.raises(ValueError, match="weights"):
         count.run_scan(keys, keys.long(), 1)
     with pytest.raises(ValueError, match="weights"):
