@@ -7,18 +7,18 @@
 // distance to each run's start from a prefix maximum, jax.lax.cummax: XLA
 // lowers it, no Pallas kernel stands behind it; and of their pair-code
 // twins, ops/count_pair.py _sorted_pair_survivors and _merge_sorted_runs_pair
-// (k > 15), whose two-key runs are one int64 key hi << 31 | lo here. A run's
-// length or total comes from the positions of consecutive run ends instead:
-// entry i ends a run when i = n - 1 or keys[i] != keys[i + 1] (the full key,
-// both words of a pair), and the run ending at i totals the weights in (the
-// previous run end, i] (weight 1 an entry without weights: its length). A
-// run survives where its end passes
+// (k > 15), whose two-key (hi, lo) runs are one int64 key hi << 31 | lo in
+// the port, from code extraction to the host. A run's length or total comes
+// from the positions of consecutive run ends instead: entry i ends a run
+// when i = n - 1 or keys[i] != keys[i + 1] (the full key, both words of a
+// pair), and the run ending at i totals the weights in (the previous run
+// end, i] (weight 1 an entry without weights: its length). A run survives
+// where its end passes
 //   keep = total >= lower && !pad(key) && total > 0;
 // pad(key) is key == SENTINEL for int32 keys and (key >> 31) == SENTINEL, the
-// hi word alone, for int64 pair codes (as ops/count_pair's _is_pad; PAD64 is
-// the pair (SENTINEL, SENTINEL)). The survivors' keys (ascending) and totals
-// are written in order: int32 keys as they are, int64 keys as the pair's two
-// int32 planes, hi = key >> 31 then lo = key & 0x7fffffff.
+// hi word alone, for int64 pair codes (as ops/count's _is_pad; their pad is
+// PAD64 = SENTINEL << 31 | SENTINEL). The survivors' keys (ascending, of the
+// keys' width) and totals are written in order.
 //
 // Totals are unsigned 32-bit sums: a difference of two such prefixes is the
 // exact total of any run below 2^32, and every caller's total is below 2^31
@@ -54,17 +54,17 @@
 //     and leaves every block's two prefixes in the status words;
 //   write (WRITE = true): reads each block's weight in and survivor offset
 //     from the finished status words, takes the tile again and writes its
-//     survivors below `cap`; its grid also writes the pads (SENTINEL, or the
-//     pair (SENTINEL, SENTINEL), and 0) of the output slots [m, cap). Blocks
-//     whose offset is at or past cap read nothing.
+//     survivors below `cap`; its grid also writes the pads (SENTINEL, or
+//     PAD64, and 0) of the output slots [m, cap). Blocks whose offset is at
+//     or past cap read nothing.
 // Two launches because the merges size their outputs on the host, from m,
 // between them; the callers with a fixed cap launch the second right behind
 // the first, and m stays on the device until they read it.
 //
 // What bounds it: bytes. The function reads its keys (4 or 8 n bytes) and
-// weights (4 n) once and writes 8 (int32 keys) or 12 (a pair's two words)
-// bytes an output slot (cap): at 2^24 int32 keys and cap = n (sort_rle)
-// 12 n bytes, 60 us at 3.35 TB/s; at a 2^28-entry int32 merge 8 n bytes
+// weights (4 n) once and writes 8 (int32 keys) or 12 (an int64 key) bytes
+// an output slot (cap), its key and its total: at 2^24 int32 keys and
+// cap = n (sort_rle) 12 n bytes, 60 us at 3.35 TB/s; at a 2^28-entry int32 merge 8 n bytes
 // read, 0.64 ms, and its outputs are the survivors only; at 2^24 pair codes
 // and cap = n (a batch of the pair path) 20 n bytes, 0.10 ms; at a 2^28-entry
 // pair merge 12 n bytes read, 0.96 ms. The design reads the inputs twice
@@ -144,13 +144,12 @@ __device__ __forceinline__ longlong2 load2(const long long* __restrict__ x, long
 
 // What the key's width sets: the entries a 16-byte load of keys holds (VEC),
 // the loads a thread makes (ROUNDS: a tile is TILE entries), how keys and
-// weights are read, the pad test, and how a survivor's key and a pad are
-// written to the output planes.
+// weights are read, the pad test, and the pad written to the output.
 template <typename Key>
 struct Keys;
 
 // int32 keys (the k <= 15 codes, mapping's hit sets): an int4 of keys and an
-// int4 of weights a load; the pad is SENTINEL; one output plane.
+// int4 of weights a load; the pad is SENTINEL.
 template <>
 struct Keys<int32_t> {
     static constexpr int VEC = 4;
@@ -164,16 +163,13 @@ struct Keys<int32_t> {
         return load4(w, i, n);
     }
     __device__ static WeightVec ones() { return make_int4(1, 1, 1, 1); }
+    static constexpr int32_t PAD = SENTINEL;
     __device__ static bool pad(int32_t key) { return key == SENTINEL; }
-    __device__ static void store(int32_t* out, int cap, long long at, int32_t key) {
-        out[at] = key;
-    }
-    __device__ static void store_pad(int32_t* out, int cap, long long at) { out[at] = SENTINEL; }
 };
 
 // int64 keys (the pair codes hi << 31 | lo of k > 15): a longlong2 of keys
-// and an int2 of weights a load; the pad test reads the hi word; two output
-// planes of cap int32 each, hi then lo (the pad pair (SENTINEL, SENTINEL)).
+// and an int2 of weights a load; the pad test reads the hi word; the pad is
+// PAD64 = SENTINEL << 31 | SENTINEL.
 template <>
 struct Keys<long long> {
     static constexpr int VEC = 2;
@@ -187,15 +183,8 @@ struct Keys<long long> {
         return load2(w, i, n);
     }
     __device__ static WeightVec ones() { return make_int2(1, 1); }
+    static constexpr long long PAD = (long long)SENTINEL << 31 | SENTINEL;
     __device__ static bool pad(long long key) { return (key >> 31) == SENTINEL; }
-    __device__ static void store(int32_t* out, int cap, long long at, long long key) {
-        out[at] = (int32_t)(key >> 31);
-        out[(long long)cap + at] = (int32_t)(key & 0x7fffffff);
-    }
-    __device__ static void store_pad(int32_t* out, int cap, long long at) {
-        out[at] = SENTINEL;
-        out[(long long)cap + at] = SENTINEL;
-    }
 };
 
 // Warp 0 of block b > 0: the value of the blocks before b (decoupled
@@ -228,7 +217,7 @@ template <typename Key, bool WEIGHTED, bool WRITE>
 __global__ void __launch_bounds__(THREADS)
 runs_kernel(const Key* __restrict__ keys, const int32_t* __restrict__ weights, long long n,
             int lower, u64* __restrict__ carry_status, u64* __restrict__ count_status,
-            int32_t* __restrict__ m, int cap, int32_t* __restrict__ out_keys,
+            int32_t* __restrict__ m, int cap, Key* __restrict__ out_keys,
             int32_t* __restrict__ out_tot) {
     using K = Keys<Key>;
     constexpr int VEC = K::VEC, ROUNDS = K::ROUNDS;
@@ -243,7 +232,7 @@ runs_kernel(const Key* __restrict__ keys, const int32_t* __restrict__ weights, l
         const long long first = (long long)b * TILE, last = first + TILE;
         const long long lo = *m > first ? *m : first, hi = cap < last ? cap : last;
         for (long long k = lo + threadIdx.x; k < hi; k += THREADS) {  // the pads
-            K::store_pad(out_keys, cap, k);
+            out_keys[k] = K::PAD;
             out_tot[k] = 0;
         }
         if (b >= nb) return;
@@ -377,7 +366,7 @@ runs_kernel(const Key* __restrict__ keys, const int32_t* __restrict__ weights, l
             for (int j = 0; j < VEC; ++j) {
                 if (kept[r] >> j & 1) {
                     if (at < cap) {
-                        K::store(out_keys, cap, at, get(k[r], j));
+                        out_keys[at] = get(k[r], j);
                         out_tot[at] = (int32_t)tot[r][j];
                     }
                     ++at;
@@ -427,7 +416,7 @@ int launch_write(const void* keys, const void* weights, long long n, int lower, 
     auto* k = static_cast<const Key*>(keys);
     auto* w = static_cast<const int32_t*>(weights);
     auto* mm = static_cast<int32_t*>(const_cast<void*>(m));
-    auto* ok = static_cast<int32_t*>(out_keys);
+    auto* ok = static_cast<Key*>(out_keys);
     auto* ot = static_cast<int32_t*>(out_tot);
     if (weights)
         runs_kernel<Key, true, true><<<grid, THREADS, 0, stream>>>(k, w, n, lower, status,
@@ -470,9 +459,8 @@ extern "C" int rn_count64(const void* keys, const void* weights, long long n, in
     return launch_count<long long>(keys, weights, n, lower, m, scratch, stream_p);
 }
 
-// rn_write of int64 keys, after rn_count64: out_keys int32 (2, cap), the
-// survivors' hi words in row 0 and lo words in row 1, then the pad pair
-// (SENTINEL, SENTINEL) from m; out_tot int32 (cap,) as there.
+// rn_write of int64 keys, after rn_count64: out_keys int64 (cap,), the
+// survivors' keys, then PAD64 pads from m; out_tot int32 (cap,) as there.
 extern "C" int rn_write64(const void* keys, const void* weights, long long n, int lower,
                           const void* m, const void* scratch, int cap, void* out_keys,
                           void* out_tot, void* stream_p) {

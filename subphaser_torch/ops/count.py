@@ -1,19 +1,26 @@
 """Sort-based exact k-mer counting (device) + spectrum accumulation.
 
-Per tile the canonical codes are sorted and run-length encoded into a sparse
-(code, count) spectrum, SENTINEL-padded to a fixed length. Every keys-only
-sort goes through the bitonic kernel (ops/sort_smem). Spectra merge by one
+One path for every k; its width is the keys' dtype. Codes are int32 for
+k <= 15 and int64 ``hi << 31 | lo`` for k in [16, 31] (ops/kmer_pair), and
+stay in that dtype from extraction to the host. The pad is SENTINEL, or
+PAD64 for int64 keys; both sort last. Per batch of tiles the canonical codes
+are sorted and run-length encoded into a sparse (code, count) spectrum,
+padded to a fixed length. Keys-only sorts of int32 keys go through the radix
+and bitonic kernels (ops/sort_smem, called by their module names here so
+that a rebinding reaches them); int64 keys through ``torch.sort``, their
+number added to the counter ``sort@int64_keys``. Spectra merge by one
 key-value sort (``torch.sort(stable=True)``; the JAX package uses XLA's sort
 there too) and the run totals of the sorted counts. Run lengths and run
 totals come from the positions of consecutive run ends (:func:`run_scan`,
-:func:`run_compact`: ``csrc/runs.cu`` on a CUDA tensor, their plain
-versions on a CPU tensor; int32 keys here, the int64 pair codes of
-ops/count_pair by the same kernel's 64-bit instantiation), thresholded and
+:func:`run_compact`: ``csrc/runs.cu``'s int32 or int64 instantiation on a
+CUDA tensor, their plain versions on a CPU tensor), thresholded and
 compacted in order, which yields the same bits as the JAX package's
-prefix-maximum scan and sort-based compaction. Each pass is a device span
-(utils/profiling) named relative to its caller's step: ``codes``, ``sort``,
-``runs``, ``compact`` and ``merge`` (``count/runs`` under counting,
-``map/runs`` under mapping).
+prefix-maximum scan and sort-based compaction (its pair codes' two-key
+sorts and scans included). Each pass is a device span (utils/profiling)
+named relative to its caller's step: ``codes``, ``sort``, ``runs``,
+``compact`` and ``merge`` (``count/runs`` under counting, ``map/runs`` under
+mapping); ``collect`` is a chromosome's one read-back to the host, with the
+host merge where there is one.
 
 Replaces jellyfish's hash counting (reference Jellyfish.py:697-703) and its
 host dict merge (Jellyfish.py:439-460).
@@ -28,9 +35,9 @@ import numpy as np
 import torch
 
 from subphaser_torch.ops.kmer import SENTINEL, kmer_codes
-from subphaser_torch.ops.kmer_pair import PAD64, split64_t
+from subphaser_torch.ops.kmer_pair import PAD64, kmer_codes64
 from subphaser_torch.ops.sort_smem import sort_int32, sort_int32_pow2
-from subphaser_torch.utils.profiling import count_launch, span
+from subphaser_torch.utils.profiling import count, count_launch, span
 
 # csrc/runs.cu launches by C entry
 entry_launches = {"rn_count": 0, "rn_write": 0, "rn_count64": 0, "rn_write64": 0}
@@ -40,23 +47,46 @@ _launch_lock = threading.Lock()
 _lib = None
 
 
+def code_dtype(k: int) -> torch.dtype:
+    """The codes' dtype at ``k``: int32 for k <= 15, int64 pair codes above."""
+    return torch.int64 if k > 15 else torch.int32
+
+
+def fits_one_sort(n_positions: int, k: int, device_budget: int) -> bool:
+    """Whether a chromosome's raw codes fit ``device_budget`` (int32 units)
+    for the fast path's one sort: int64 codes take two units a position."""
+    return n_positions <= device_budget // (code_dtype(k).itemsize // 4)
+
+
+def _pad_of(keys: torch.Tensor) -> int:
+    return PAD64 if keys.dtype == torch.int64 else SENTINEL
+
+
 def _pad_to(x: torch.Tensor, cap: int, value) -> torch.Tensor:
     if x.numel() >= cap:
         return x[:cap]
     return torch.cat([x, torch.full((cap - x.numel(),), value, dtype=x.dtype, device=x.device)])
 
 
+def _sort(keys: torch.Tensor, pow2: bool = False) -> torch.Tensor:
+    """Keys-only ascending sort of flat keys: int32 by ``sort_int32_pow2``
+    (a power-of-two length) or ``sort_int32``; int64 by ``torch.sort``."""
+    with span("sort", device=True):
+        if keys.dtype == torch.int64:
+            count("int64_keys", keys.numel())
+            return torch.sort(keys).values
+        return sort_int32_pow2(keys) if pow2 else sort_int32(keys)
+
+
 def sort_rle(codes: torch.Tensor):
-    """Sort flat int32 codes and run-length encode.
+    """Sort flat codes and run-length encode.
 
     Returns (ucodes, counts) of the same length N: unique codes ascending,
-    padded with SENTINEL. A trailing run of SENTINEL inputs (invalid
-    positions) shows up as one SENTINEL "code", dropped downstream.
+    padded with the keys' pad. A trailing run of pad inputs (invalid
+    positions) shows up as one pad "code", dropped downstream.
     """
-    n = codes.numel()
-    with span("sort", device=True):
-        s = sort_int32(codes.reshape(-1))
-    return _compact_survivors(_sorted_run_survivors(s, 1), n)
+    s = _sort(codes.reshape(-1))
+    return _compact_survivors(_sorted_run_survivors(s, 1), s.numel())
 
 
 def _merge_sorted_runs(codes, counts, lower: int) -> "Runs":
@@ -73,32 +103,26 @@ def merge_rle_many(parts, lower_count: int = 1):
     if len(parts) == 1 and lower_count <= 1:
         return parts[0]
     with span("merge", device=True):
-        total = sum(int(p[0].numel()) for p in parts)
-        cap = 1 << max(total - 1, 1).bit_length()
-        runs = _merge_sorted_runs(_pad_to(torch.cat([p[0] for p in parts]), cap, SENTINEL),
-                                  _pad_to(torch.cat([p[1] for p in parts]), cap, 0),
-                                  lower_count)
+        cap = _pow2(sum(int(p[0].numel()) for p in parts))
+        runs = _merge_sorted_runs(_concat_pow2([p[0] for p in parts]),
+                                  _pad_to(torch.cat([p[1] for p in parts]), cap, 0), lower_count)
         return _compact_survivors(runs, _out_cap(int(runs.m), cap))
 
 
-def count_tile(words, vwords, k: int, n_pos_words: int):
-    """Packed tile -> sorted sparse (codes, counts) spectrum."""
-    with span("codes", device=True):
-        codes = kmer_codes(words, vwords, k, n_pos_words)
-    return sort_rle(codes)
-
-
 def extract_codes_batch(words, vwords, k: int, n_pos_words: int):
-    """(T, n_words) or (n_words,) packed tiles -> flat canonical codes."""
+    """(T, n_words) or (n_words,) packed tiles -> flat canonical codes of
+    :func:`code_dtype`."""
+    codes_of = kmer_codes64 if code_dtype(k) == torch.int64 else kmer_codes
     with span("codes", device=True):
         if words.dim() == 1:
-            return kmer_codes(words, vwords, k, n_pos_words).reshape(-1)
-        return torch.cat([kmer_codes(w, v, k, n_pos_words).reshape(-1)
+            return codes_of(words, vwords, k, n_pos_words).reshape(-1)
+        return torch.cat([codes_of(w, v, k, n_pos_words).reshape(-1)
                           for w, v in zip(words, vwords)])
 
 
 def count_tile_batch(words, vwords, k: int, n_pos_words: int):
-    """(T, n_words) packed tiles -> one merged sorted spectrum (one sort)."""
+    """(T, n_words) or (n_words,) packed tiles -> one sorted spectrum (one
+    sort)."""
     return sort_rle(extract_codes_batch(words, vwords, k, n_pos_words))
 
 
@@ -160,7 +184,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def _is_pad(keys: torch.Tensor) -> torch.Tensor:
     """The pad keys: SENTINEL of int32 keys; of int64 pair codes those whose
-    hi word is SENTINEL (PAD64 is the pair (SENTINEL, SENTINEL); the hi word
+    hi word is SENTINEL (PAD64 is ``SENTINEL << 31 | SENTINEL``; the hi word
     alone is exact for canonical codes, see ops/kmer_pair)."""
     if keys.dtype == torch.int64:
         return (keys >> 31) == SENTINEL
@@ -237,22 +261,16 @@ def run_scan(keys: torch.Tensor, weights: torch.Tensor | None, lower: int) -> Ru
 
 def run_compact(runs: Runs, cap: int):
     """The first ``cap`` survivors of :func:`run_scan` in order, padded from
-    the survivor count: (keys, int32 totals), the totals 0-padded. The keys
-    are an int32 (cap,) tensor, SENTINEL-padded, or of int64 pair codes an
-    int32 (2, cap) tensor whose rows are the pair's hi and lo words,
-    (SENTINEL, SENTINEL)-padded. A CUDA scan launches ``rn_write`` /
-    ``rn_write64`` of csrc/runs.cu; a CPU scan pads or cuts its plain
-    result."""
-    pair = runs.keys.dtype == torch.int64
+    the survivor count: (keys, int32 totals), both (cap,), the keys of the
+    scanned keys' dtype and padded with their pad (SENTINEL or PAD64), the
+    totals 0-padded. A CUDA scan launches ``rn_write`` / ``rn_write64`` of
+    csrc/runs.cu; a CPU scan pads or cuts its plain result."""
     if runs.kept is not None:
-        tot = _pad_to(runs.kept[1], cap, 0)
-        if pair:
-            return torch.stack(split64_t(_pad_to(runs.kept[0], cap, PAD64))), tot
-        return _pad_to(runs.kept[0], cap, SENTINEL), tot
+        return _pad_to(runs.kept[0], cap, _pad_of(runs.keys)), _pad_to(runs.kept[1], cap, 0)
     lib = runs_lib()
     keys, weights = runs.keys, runs.weights
     dev = keys.device
-    out_keys = torch.empty((2, cap) if pair else cap, dtype=torch.int32, device=dev)
+    out_keys = torch.empty(cap, dtype=keys.dtype, device=dev)
     out_tot = torch.empty(cap, dtype=torch.int32, device=dev)
     entry = _ENTRIES[keys.dtype][1]
     with torch.cuda.device(dev):
@@ -272,8 +290,8 @@ def _sorted_run_survivors(s: torch.Tensor, lower: int) -> Runs:
 
 
 def _compact_survivors(runs: Runs, cap: int):
-    """Survivor codes + counts, SENTINEL/0-padded or cut to ``cap`` (pair
-    codes: a (2, cap) tensor of hi and lo, see :func:`run_compact`)."""
+    """Survivor codes + counts, pad/0-padded or cut to ``cap``
+    (:func:`run_compact`)."""
     with span("compact", device=True):
         return run_compact(runs, cap)
 
@@ -281,84 +299,43 @@ def _compact_survivors(runs: Runs, cap: int):
 def _out_cap(m: int, n: int) -> int:
     """The output size of a thresholded count: m survivors rounded up to a
     power of two, at least 2^10 and at most the ``n`` entries scanned."""
-    return min(max(1 << max(m - 1, 1).bit_length(), 1 << 10), n)
+    return min(max(_pow2(m), 1 << 10), n)
 
 
 def _sort_only(codes: torch.Tensor) -> torch.Tensor:
-    with span("sort", device=True):
-        return sort_int32_pow2(codes.reshape(-1))
+    return _sort(codes.reshape(-1), pow2=True)
+
+
+def _pow2(n: int) -> int:
+    """The next power of two at or above n, at least 2."""
+    return 1 << max(n - 1, 1).bit_length()
 
 
 def _concat_pow2(code_parts):
-    """Concat parts + SENTINEL pad to the next power of two."""
-    total = sum(int(p.numel()) for p in code_parts)
-    cap = 1 << max(total - 1, 1).bit_length()
+    """Concat parts + pad (the keys' own) to the next power of two."""
     flat = torch.cat([p.reshape(-1) for p in code_parts])
-    return _pad_to(flat, cap, SENTINEL)
+    return _pad_to(flat, _pow2(flat.numel()), _pad_of(flat))
 
 
-def count_codes_threshold(code_parts, lower_count: int):
-    """Raw code arrays -> host (codes int32, counts int64) with
+def _to_host(keys: torch.Tensor, counts: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """Device survivors -> host (keys of their dtype, int64 counts), the
+    pads dropped."""
+    live = ~_is_pad(keys)
+    return keys[live].cpu().numpy(), counts[live].cpu().numpy().astype(np.int64)
+
+
+def count_codes_threshold(code_parts, lower_count: int, dtype: torch.dtype = torch.int32):
+    """Raw code arrays -> host (codes of their dtype, counts int64) with
     count >= lower_count, via ONE keys-only sort of the pow2-padded
-    concatenation and a compaction sized to the survivor count."""
+    concatenation and a compaction sized to the survivor count. ``dtype``
+    is the codes' dtype when there are no parts."""
     if not code_parts:  # zero-length chromosome
-        return np.empty(0, np.int32), np.empty(0, np.int64)
+        return torch.empty(0, dtype=dtype).numpy(), np.empty(0, np.int64)
     s = _sort_only(_concat_pow2(code_parts))
     runs = _sorted_run_survivors(s, lower_count)
-    out_c, out_n = compact_host(*_compact_survivors(runs, _out_cap(int(runs.m), s.numel())))
-    return out_c, out_n.astype(np.int64)
-
-
-def count_codes_async(code_parts, lower_count: int, static_cap: int):
-    """Sort + RLE + compaction to a STATIC cap: returns device (codes,
-    counts, m), or None for a zero-length chromosome. When the survivor
-    count m exceeds the cap, :func:`count_codes_collect` recounts exactly."""
-    if not code_parts:
-        return None
-    codes = _concat_pow2(code_parts)
-    static_cap = min(static_cap, codes.numel())
-    runs = _sorted_run_survivors(_sort_only(codes), lower_count)
-    u, c = _compact_survivors(runs, static_cap)
-    return u, c, runs.m
-
-
-def count_codes_collect(handles, lower_count: int, rebuild_parts=None):
-    """One dispatched count -> host (codes, counts int64). When the survivor
-    count overflowed the static cap, recount exactly from
-    ``rebuild_parts()`` (rare; repeat-dense chromosomes with a low
-    lower_count)."""
-    if handles is None:
-        return np.empty(0, np.int32), np.empty(0, np.int64)
-    u, c, m_dev = handles
-    m = int(m_dev)
-    cap = u.numel()
-    if m > cap:
-        if rebuild_parts is None:
-            raise RuntimeError(f"survivors {m} exceed static cap {cap}")
-        from subphaser_torch.utils.log import logger
-
-        logger.info(
-            "Survivors (%d) exceed the async cap (%d); exact recompute", m, cap
-        )
-        return count_codes_threshold(rebuild_parts(), lower_count)
-    out_c, out_n = compact_host(u[:m], c[:m])
-    return out_c, out_n.astype(np.int64)
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def compact_host(codes, counts):
-    """Drop SENTINEL padding on host."""
-    codes, counts = _host(codes), _host(counts)
-    m = codes != SENTINEL
-    return codes[m], counts[m]
-
-
-def count_surviving(counts: torch.Tensor, lower: int) -> torch.Tensor:
-    """Number of entries with count >= lower."""
-    return (counts >= lower).sum()
+    survivors = _compact_survivors(runs, _out_cap(int(runs.m), s.numel()))
+    with span("collect"):
+        return _to_host(*survivors)
 
 
 def merge_host(parts: list[tuple[np.ndarray, np.ndarray]]):
@@ -381,11 +358,13 @@ def merge_host(parts: list[tuple[np.ndarray, np.ndarray]]):
 
 
 class SpectrumAccumulator:
-    """Accumulates per-tile spectra into one chromosome spectrum.
+    """Accumulates per-batch spectra (keys of either width) into one
+    chromosome spectrum.
 
     Parts stay on device unmerged until ``finish``, which merges everything
     in ONE sort. If the pending parts exceed ``device_budget`` entries they
-    are pre-merged, and spilled to host only beyond the budget.
+    are pre-merged, and spilled to host only beyond the budget. Every merge
+    goes through :meth:`_merge`.
     """
 
     def __init__(self, device_budget: int = 1 << 28):
@@ -394,45 +373,33 @@ class SpectrumAccumulator:
         self.pending = 0
         self.spilled: list[tuple[np.ndarray, np.ndarray]] = []
 
+    def _merge(self, parts, lower_count: int = 1):
+        return merge_rle_many(parts, lower_count)
+
     def add(self, codes: torch.Tensor, counts: torch.Tensor) -> None:
         self.parts.append((codes, counts))
         self.pending += codes.numel()
         if self.pending > self.device_budget:
-            merged = merge_rle_many(self.parts)
+            merged = self._merge(self.parts)
             self.parts = [merged]
             self.pending = merged[0].numel()
             if self.pending > self.device_budget:
-                self.spilled.append(compact_host(*merged))
+                self.spilled.append(_to_host(*merged))
                 self.parts = []
                 self.pending = 0
 
-    def finish_async(self, lower_count: int = 1):
-        """Merge + threshold on device: (u, c, m) handles for
-        :func:`count_codes_collect`, or None when host spills force the
-        synchronous path (:meth:`finish`)."""
-        if self.spilled or not self.parts:
-            return None
-        u, c = merge_rle_many(self.parts, lower_count)
-        self.parts = []
-        self.pending = 0
-        return u, c, count_surviving(c, 1)
-
     def finish(self, lower_count: int = 1) -> tuple[np.ndarray, np.ndarray]:
         """Merge everything; apply the per-chromosome dump threshold."""
-        if not self.spilled and lower_count > 1 and self.parts:
-            u, c = merge_rle_many(self.parts, lower_count)
-            self.parts = []
-            self.pending = 0
-            out_c, out_n = compact_host(u, c)
-            return out_c, out_n.astype(np.int64)
-        parts = list(self.spilled)
-        if self.parts:
-            parts.append(compact_host(*merge_rle_many(self.parts)))
-        self.parts = []
-        self.pending = 0
-        self.spilled = []
-        codes, counts = merge_host(parts)
-        if lower_count > 1:
-            keep = counts >= lower_count
-            codes, counts = codes[keep], counts[keep]
+        parts, spilled = self.parts, self.spilled
+        self.parts, self.pending, self.spilled = [], 0, []
+        if parts and not spilled:
+            merged = self._merge(parts, lower_count)
+            with span("collect"):
+                return _to_host(*merged)
+        merged = [self._merge(parts)] if parts else []
+        with span("collect"):
+            codes, counts = merge_host(spilled + [_to_host(*m) for m in merged])
+            if lower_count > 1:
+                keep = counts >= lower_count
+                codes, counts = codes[keep], counts[keep]
         return codes, counts

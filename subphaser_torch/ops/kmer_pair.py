@@ -1,10 +1,13 @@
-"""Canonical k-mer codes for k in [16, 31]: (hi, lo) int32 pair codes.
+"""Canonical k-mer codes for k in [16, 31]: int64 pair codes.
 
-A 2k-bit code (up to 62 bits) is carried as two int32 words: ``lo`` = bits
-[0, 31), ``hi`` = bits [31, 2k). Their int64 form is ``hi << 31 | lo``
-(:func:`combine64`); the count and map modules sort and search that single
-key on the device, and everything host-side (merges, matrices, matching,
-k-mer strings) uses it too.
+A 2k-bit code (up to 62 bits) is the int64 ``hi << 31 | lo`` of two 31-bit
+words, ``lo`` = bits [0, 31) and ``hi`` = bits [31, 2k), as the JAX package
+splits it. The port holds the int64 key everywhere: counting (ops/count)
+and mapping (ops/mapbins_pair) sort and search it on the device from code
+extraction on, and everything host-side (merges, matrices, matching, k-mer
+strings) uses it too. The (hi, lo) int32 pair exists only at the JAX
+package's boundary: :func:`kmer_codes_pair`, :func:`forward_codes_pair` and
+the combine/split helpers below, for the tests that hold the port to it.
 
 Same word-level scheme as ops/kmer.py: the k-mer window at position p spans
 three packed words; the little-endian window value gives the reverse
@@ -13,17 +16,18 @@ reversal. The JAX package does this in uint32 with logical shifts; here
 every word is an int64 holding its uint32 value, masked back to 32 bits
 after each ``<<``, ``~`` and ``|`` (PyTorch's ``>>`` on int32 is arithmetic).
 
-Padding is the PAIR (SENTINEL, SENTINEL), int64 ``PAD64 = 2^62 - 1``, which
-sorts after every canonical code. At k = 31 the hi part holds 31 value
-bits, so hi == SENTINEL is representable. For CANONICAL codes it can never
-occur: hi all-ones needs the first 15 bases T and base 16 in {G, T};
-canonicity (code <= rc) then forces rc to open with the same T-run, which
-pins the last 15 bases to A and position 16 of rc to the COMPLEMENT of base
-16 - complement(G/T) = C/A < G/T, contradiction. Counting's hi-only pad
-tests therefore stay exact at k = 31. FORWARD codes (mapping) can reach
-hi == SENTINEL legitimately, so mapping tests the whole pair; only a
-position whose forward 31-mer is exactly T^31 is then indistinguishable
-from padding and is skipped (poly-T 31-mers are never subgenome-specific).
+Padding is ``PAD64 = SENTINEL << 31 | SENTINEL = 2^62 - 1`` (the JAX pair
+(SENTINEL, SENTINEL)), which sorts after every canonical code. At k = 31 the
+hi part holds 31 value bits, so hi == SENTINEL is representable. For
+CANONICAL codes it can never occur: hi all-ones needs the first 15 bases T
+and base 16 in {G, T}; canonicity (code <= rc) then forces rc to open with
+the same T-run, which pins the last 15 bases to A and position 16 of rc to
+the COMPLEMENT of base 16 - complement(G/T) = C/A < G/T, contradiction.
+Counting's hi-only pad tests therefore stay exact at k = 31. FORWARD codes
+(mapping) can reach hi == SENTINEL legitimately, so mapping tests the whole
+pair; only a position whose forward 31-mer is exactly T^31 is then
+indistinguishable from padding and is skipped (poly-T 31-mers are never
+subgenome-specific).
 """
 
 from __future__ import annotations

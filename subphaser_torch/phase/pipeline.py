@@ -137,7 +137,7 @@ class Pipeline:
         if not 1 <= self.k <= 31:
             raise ValueError(
                 f"k={self.k} unsupported: codes are int32 for k <= 15 and "
-                "(hi, lo) int32 pairs for 16 <= k <= 31"
+                "int64 pair codes hi << 31 | lo for 16 <= k <= 31"
             )
 
     def _parse_plot_options(self):

@@ -6,10 +6,11 @@ applies the ``lower_count`` dump threshold (jellyfish ``dump -L``, reference
 Jellyfish.py:697-703), and assembles the sparse candidate count matrix the
 differential filter consumes (reference Jellyfish.py:439-460).
 
-Paths for every supported k: int32 codes for k <= 15, (hi, lo) pair codes
-(ops/count_pair) for 16 <= k <= 31. Several processes (parallel/distributed)
-count the chromosomes each owns and exchange the spectra; a mesh of devices
-(parallel/sharded_count) counts each chromosome over its "data" axis, k <= 15.
+One counting path for every supported k (ops/count): int32 codes for
+k <= 15, int64 pair codes for 16 <= k <= 31. Several processes
+(parallel/distributed) count the chromosomes each owns and exchange the
+spectra; a mesh of devices (parallel/sharded_count) counts each chromosome
+over its "data" axis, k <= 15.
 """
 
 from __future__ import annotations
@@ -22,19 +23,14 @@ import torch
 from subphaser_torch.io.genome import DEFAULT_TILE_BASES, PackedGenome
 from subphaser_torch.ops.count import (
     SpectrumAccumulator,
-    count_codes_async,
-    count_codes_collect,
-    count_tile,
+    code_dtype,
+    count_codes_threshold,
     count_tile_batch,
     extract_codes_batch,
+    fits_one_sort,
     merge_host,
 )
-from subphaser_torch.ops.count_pair import (
-    PairSpectrumAccumulator,
-    count_pair_codes_threshold,
-    count_tile_batch_pair,
-    extract_pair_codes_batch,
-)
+from subphaser_torch.ops.count_pair import PairSpectrumAccumulator
 from subphaser_torch.parallel.distributed import (
     exchange_chrom_spectra,
     owns_chrom,
@@ -137,56 +133,28 @@ def count_genome(
             logger.info("Loaded spectrum checkpoint for %s", chrom.name)
             continue
 
-        def chrom_tiles(ci_local=ci):
-            return [t for t in genome.tiles(k, tile_bases=tile_bases)
-                    if t.chrom_index == ci_local]
-
         with span("tiles"):
-            tiles = chrom_tiles()
+            tiles = [t for t in genome.tiles(k, tile_bases=tile_bases) if t.chrom_index == ci]
         n_positions = len(tiles) * 16 * n_pos_words
         if mesh is not None and k <= 15 and mesh.shape.get("data", 1) > 1:
             codes, counts = sharded_spectrum(mesh, tiles, k, n_pos_words)
             keep = counts >= lower_count
             codes, counts = codes[keep], counts[keep]
             logger.info("Counted %s on %d devices", chrom.name, mesh.shape["data"])
-        elif k > 15 and n_positions <= device_budget // 2:
-            # pair codes are two int32 words, so the fast path (one sort
-            # over the chromosome's raw codes) fits half the budget
-            parts = [extract_pair_codes_batch(w, v, k, n_pos_words)
-                     for w, v in batches_of(tiles)]
-            codes, counts = count_pair_codes_threshold(parts, lower_count)
-            del parts
-        elif k > 15:
-            pacc = PairSpectrumAccumulator(device_budget=device_budget)
-            for words, vwords in batches_of(tiles):
-                pacc.add(*count_tile_batch_pair(words, vwords, k, n_pos_words))
-            codes, counts = pacc.finish(lower_count)
-        elif n_positions <= device_budget:
+        elif fits_one_sort(n_positions, k, device_budget):
             # fast path: hold the chromosome's raw codes on device and run
             # ONE keys-only sort
-            def rebuild(tiles_=None):
-                return [extract_codes_batch(w, v, k, n_pos_words)
-                        for w, v in batches_of(tiles_ or chrom_tiles())]
-
-            handles = count_codes_async(rebuild(tiles), lower_count, static_cap=1 << 23)
-            with span("collect"):
-                codes, counts = count_codes_collect(handles, lower_count, rebuild)
+            parts = [extract_codes_batch(w, v, k, n_pos_words) for w, v in batches_of(tiles)]
+            codes, counts = count_codes_threshold(parts, lower_count, code_dtype(k))
+            del parts
         else:
             # accumulator path (chromosome exceeds the device budget):
-            # per-batch count + device merges
-            acc = SpectrumAccumulator(device_budget=device_budget)
+            # per-batch count + device merges; at k > 15 the subclass whose
+            # merges perfbench's pair-path test counts through ops/count_pair
+            acc = (PairSpectrumAccumulator if k > 15 else SpectrumAccumulator)(device_budget)
             for words, vwords in batches_of(tiles):
-                if words.dim() == 1:
-                    u, c = count_tile(words, vwords, k, n_pos_words)
-                else:
-                    u, c = count_tile_batch(words, vwords, k, n_pos_words)
-                acc.add(u, c)
-            handles = acc.finish_async(lower_count)
-            with span("collect"):
-                if handles is not None:
-                    codes, counts = count_codes_collect(handles, lower_count)
-                else:  # host spills force the synchronous merge
-                    codes, counts = acc.finish(lower_count)
+                acc.add(*count_tile_batch(words, vwords, k, n_pos_words))
+            codes, counts = acc.finish(lower_count)
         total = int(counts.sum())
         logger.info(
             "Counted %s: %d distinct k-mers (count >= %d), %d total",

@@ -17,6 +17,7 @@ import torch
 
 from subphaser_torch.ops import kmeans as tk
 from subphaser_tpu.ops import kmeans as jk
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -127,23 +127,36 @@ def test_merge_rle_many_identical(lower, kind):
     assert np.array_equal(ju, tu) and np.array_equal(jn, tn)
 
 
+@pytest.mark.parametrize("width", [32, 64])
 @pytest.mark.parametrize("lower,kind", [
     (2, "random"), (1, "one_run"), (2, "all_sentinel"),
     (10_000, "random"),     # above every count
     (2, "long_runs"),
 ])
-def test_async_cap_overflow_recounts_exactly(lower, kind):
-    parts = [torch.from_numpy(_codes(3000, kind, 7 + i)) for i in range(3)]
+def test_count_codes_threshold_identical_at_both_widths(lower, kind, width):
+    """The fast path's count (one sort of the pow2-padded concatenation, a
+    compaction sized to the survivor count) against the JAX package's: int32
+    codes against ``count_codes_threshold``; the same values as int64 pair
+    codes ``x << 31 | x`` (SENTINEL becomes PAD64) against
+    ``count_pair_codes_threshold`` on the pairs (x, x)."""
+    from subphaser_tpu.ops import count_pair as jcp
+
+    parts = [_codes(3000, kind, 7 + i) for i in range(3)]
     if kind == "random":
         rng = np.random.default_rng(7)
-        parts = [torch.from_numpy(rng.integers(0, 5000, size=3000).astype(np.int32))
-                 for _ in range(3)]
-    ref = tc.count_codes_threshold(parts, lower)
-    handles = tc.count_codes_async(parts, lower, static_cap=16)  # far too small
-    got = tc.count_codes_collect(handles, lower, rebuild_parts=lambda: parts)
-    assert np.array_equal(ref[0], got[0]) and np.array_equal(ref[1], got[1])
-    jref = jc.count_codes_threshold([np.asarray(p) for p in parts], lower)
-    assert np.array_equal(ref[0], jref[0]) and np.array_equal(ref[1], jref[1])
+        parts = [rng.integers(0, 5000, size=3000).astype(np.int32) for _ in range(3)]
+    if width == 32:
+        want = jc.count_codes_threshold(parts, lower)
+        got = tc.count_codes_threshold([torch.from_numpy(p) for p in parts], lower)
+    else:
+        want = jcp.count_pair_codes_threshold([(p, p) for p in parts], lower)
+        got = tc.count_codes_threshold(
+            [torch.from_numpy(p.astype(np.int64) << 31 | p) for p in parts], lower)
+    assert got[0].dtype == (np.int32 if width == 32 else np.int64)
+    assert got[1].dtype == np.int64
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    if kind == "random" and lower == 2:
+        assert got[0].size > 0
 
 
 def test_no_route_of_counting_or_mapping_takes_cummax(genomes, monkeypatch):

@@ -1,12 +1,15 @@
-"""PyTorch port: pair-code (k in [16, 31]) counting against the JAX package
-on the same packed tiles. Tolerance: exact (int32 words, int64 host codes,
-counts)."""
+"""PyTorch port: counting at k in [16, 31] against the JAX package's pair
+codes on the same packed tiles. The port's ops/count holds int64 keys
+``hi << 31 | lo`` end to end; the JAX package's (hi, lo) int32 outputs are
+combined on the host (``ops/kmer_pair.combine64``) before they are compared.
+Tolerance: exact (int64 codes, counts)."""
 
 import numpy as np
 import pytest
 import torch
 
-from subphaser_torch.ops import count_pair as tc
+from subphaser_torch.ops import count as tc
+from subphaser_torch.ops.kmer_pair import combine64
 from subphaser_torch.phase.spectrum import count_genome as t_count_genome
 from subphaser_torch.state import genome_from_numpy
 from subphaser_tpu.io.genome import PackedGenome
@@ -28,10 +31,19 @@ def _genome(seed: int, n_frac: float = 0.02):
 
 
 def _same(jres, tres):
+    """A JAX (hi, lo[, counts]) result against the port's (int64 keys[,
+    counts]): the pair combined into its int64 key, padding included."""
+    jres = (combine64(jres[0], jres[1]), *jres[2:])
+    assert len(jres) == len(tres)
     for a, b in zip(jres, tres):
         b = b.numpy() if isinstance(b, torch.Tensor) else b
         assert np.asarray(a).dtype == b.dtype
         assert np.array_equal(np.asarray(a), b)
+
+
+def _keys(pair) -> torch.Tensor:
+    """A JAX (hi, lo) pair as the port's int64 key tensor."""
+    return _t(combine64(pair[0], pair[1]))
 
 
 @pytest.mark.parametrize("k", [16, 17, 23, 31])
@@ -44,11 +56,11 @@ def test_count_tile_batch_pair_identical(k, batched):
     else:
         words, vwords = tiles[1].words, tiles[1].vwords
     jres = jc.count_tile_batch_pair(words, vwords, k, 64)
-    tres = tc.count_tile_batch_pair(_t(words), _t(vwords), k, 64)
+    tres = tc.count_tile_batch(_t(words), _t(vwords), k, 64)
     _same(jres, tres)
-    assert int(tres[2].sum()) > 0
+    assert tres[0].dtype == torch.int64 and int(tres[1].sum()) > 0
     _same(jc.extract_pair_codes_batch(words, vwords, k, 64),
-          tc.extract_pair_codes_batch(_t(words), _t(vwords), k, 64))
+          (tc.extract_codes_batch(_t(words), _t(vwords), k, 64),))
 
 
 @pytest.mark.parametrize("lower", [1, 3])
@@ -56,15 +68,16 @@ def test_count_tile_batch_pair_identical(k, batched):
 def test_count_pair_codes_threshold_identical(k, lower):
     tiles = list(_genome(k + lower).tiles(k, tile_bases=1024))
     jparts = [jc.extract_pair_codes_batch(t.words, t.vwords, k, 64) for t in tiles]
-    tparts = [tuple(_t(np.asarray(a)) for a in p) for p in jparts]
+    tparts = [_keys(p) for p in jparts]
     jcode, jn = jc.count_pair_codes_threshold(jparts, lower)
-    tcode, tn = tc.count_pair_codes_threshold(tparts, lower)
+    tcode, tn = tc.count_codes_threshold(tparts, lower)
     assert tcode.dtype == np.int64 and tn.dtype == np.int64 and tcode.size > 0
     assert np.array_equal(tcode, jcode) and np.array_equal(tn, jn)
     assert np.all(np.diff(tcode) > 0)
     assert tn.min() >= lower
-    for fn in (jc.count_pair_codes_threshold, tc.count_pair_codes_threshold):
-        code, n = fn([], lower)
+    for code, n in (jc.count_pair_codes_threshold([], lower),
+                    tc.count_codes_threshold([], lower, tc.code_dtype(k)),
+                    tc.count_codes_threshold([torch.empty(0, dtype=torch.int64)], lower)):
         assert code.size == 0 and n.size == 0 and code.dtype == np.int64
 
 
@@ -73,10 +86,9 @@ def test_merge_rle_many_pair_identical(lower):
     k = 19
     tiles = list(_genome(5).tiles(k, tile_bases=1024))
     jparts = [jc.count_tile_batch_pair(t.words, t.vwords, k, 64) for t in tiles]
-    tparts = [tuple(_t(np.asarray(a)) for a in p) for p in jparts]
-    _same(jc.merge_rle_many_pair(jparts, lower), tc.merge_rle_many_pair(tparts, lower))
-    _same(jc.merge_rle_many_pair(jparts[:1], lower),
-          tc.merge_rle_many_pair(tparts[:1], lower))
+    tparts = [(_keys(p), _t(np.asarray(p[2]))) for p in jparts]
+    _same(jc.merge_rle_many_pair(jparts, lower), tc.merge_rle_many(tparts, lower))
+    _same(jc.merge_rle_many_pair(jparts[:1], lower), tc.merge_rle_many(tparts[:1], lower))
 
 
 @pytest.mark.parametrize("lower", [1, 3])
@@ -88,10 +100,10 @@ def test_accumulator_identical(budget, tile, spills, lower):
     k = 17
     g = _genome(9, n_frac=0.0)
     jacc = jc.PairSpectrumAccumulator(device_budget=budget)
-    tacc = tc.PairSpectrumAccumulator(device_budget=budget)
+    tacc = tc.SpectrumAccumulator(device_budget=budget)
     for t in g.tiles(k, tile_bases=tile):
         jacc.add(*jc.count_tile_batch_pair(t.words, t.vwords, k, tile // 16))
-        tacc.add(*tc.count_tile_batch_pair(_t(t.words), _t(t.vwords), k, tile // 16))
+        tacc.add(*tc.count_tile_batch(_t(t.words), _t(t.vwords), k, tile // 16))
         assert tacc.pending == jacc.pending
     assert bool(tacc.spilled) == bool(jacc.spilled) == spills
     jcode, jn = jacc.finish(lower)
@@ -125,4 +137,22 @@ def test_pair_spectra_identical(tmp_path_factory, device_budget, batch_tiles, lo
     for a, b in zip(js, ts):
         assert a.total == b.total and b.codes.size > 0
         assert b.codes.dtype == np.int64 and b.counts.dtype == np.int64
+        assert np.array_equal(a.codes, b.codes) and np.array_equal(a.counts, b.counts)
+
+
+@pytest.mark.parametrize("k", [15, 17])
+@pytest.mark.parametrize("device_budget", [1 << 28, 1 << 10])
+def test_empty_chromosome_keeps_the_code_width(k, device_budget):
+    """A zero-length chromosome has no tiles: its spectrum is empty, with the
+    codes' dtype at k (int32 at k <= 15, int64 above), as in the JAX package."""
+    rng = np.random.default_rng(k)
+    jg = PackedGenome.from_dict({"c": random_seq(rng, 3000), "e": ""})
+    tg = genome_from_numpy((c.name, c.length, c.packed, c.vmask) for c in jg.chroms)
+    kw = dict(lower_count=1, tile_bases=1024, device_budget=device_budget)
+    js = j_count_genome(jg, k, **kw)
+    ts = t_count_genome(tg, k, device="cpu", **kw)
+    assert ts[1].codes.size == 0 and ts[1].total == 0
+    for a, b in zip(js, ts):
+        assert a.codes.dtype == b.codes.dtype == (np.int64 if k > 15 else np.int32)
+        assert a.counts.dtype == b.counts.dtype
         assert np.array_equal(a.codes, b.codes) and np.array_equal(a.counts, b.counts)

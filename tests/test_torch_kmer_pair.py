@@ -13,6 +13,7 @@ import torch
 from subphaser_torch.io.genome import PackedGenome
 from subphaser_torch.ops import kmer_pair as tp
 from subphaser_tpu.ops import kmer_pair as jp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KS = [16, 17, 23, 31]
 FNS = ["kmer_codes_pair", "forward_codes_pair"]

@@ -1,12 +1,12 @@
 """PyTorch port: the run-length passes of int64 pair codes (k > 15).
 
 ``run_scan`` + ``run_compact`` of ops/count on int64 keys: on the CPU their
-plain version against the two ``torch.cummax`` chains ops/count_pair used
-before (run lengths of a batch, run totals of a merge's counts), on the
-card the 64-bit instantiation of csrc/runs.cu (``rn_count64``,
-``rn_write64``) against the plain version, and the pair path's launches and
-spans. The pair path's outputs are held to the JAX package's by
-tests/test_torch_count_pair.py. The tests marked ``cuda`` skip without a
+plain version against the two ``torch.cummax`` chains that counting used
+before the kernel (run lengths of a batch, run totals of a merge's counts),
+on the card the 64-bit instantiation of csrc/runs.cu (``rn_count64``,
+``rn_write64``, int64 keys out, PAD64-padded) against the plain version, and
+the launches and spans of counting on int64 keys. Its outputs are held to
+the JAX package's pair codes by tests/test_torch_count_pair.py. The tests marked ``cuda`` skip without a
 card. Tolerance: exact (integer keys, counts and survivor counts).
 """
 
@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from subphaser_torch.ops import count, count_pair
+from subphaser_torch.ops import count
 from subphaser_torch.ops.kmer import SENTINEL
-from subphaser_torch.ops.kmer_pair import PAD64, split64_t
+from subphaser_torch.ops.kmer_pair import PAD64
 from subphaser_torch.utils.profiling import Spans
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -64,7 +64,8 @@ def _bounds(s):
 
 
 def _cummax_lengths(s, lower: int):
-    """ops/count_pair's _sorted_pair_survivors before the kernel, compacted."""
+    """The pair codes' run lengths before the kernel (a prefix maximum of the
+    run starts), compacted."""
     start, end = _bounds(s)
     iota = torch.arange(s.numel(), dtype=torch.int32, device=s.device)
     runlen = iota - torch.cummax(torch.where(start, iota, -1), 0).values + 1
@@ -73,7 +74,7 @@ def _cummax_lengths(s, lower: int):
 
 
 def _cummax_totals(code, counts, lower: int):
-    """ops/count_pair's _merge_sorted_runs_pair before the kernel (after its
+    """The pair codes' run totals of a merge before the kernel (after its
     sort), compacted."""
     start, end = _bounds(code)
     csum = torch.cumsum(counts, 0, dtype=torch.int64)
@@ -111,12 +112,10 @@ def test_plain_runs_of_pair_codes_equal_the_cummax_chains(name, weighted, lower)
     runs = count.run_scan(keys, weights, lower)
     assert int(runs.m) == want[0].numel()
     for cap in (n, max(want[0].numel() // 2, 1)):
-        planes, tot = count.run_compact(runs, cap)
-        assert planes.shape == (2, cap)
-        hi, lo = planes
-        want_hi, want_lo = split64_t(count._pad_to(want[0], cap, PAD64))
-        assert hi.dtype == lo.dtype == tot.dtype == torch.int32
-        assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+        out, tot = count.run_compact(runs, cap)
+        assert out.shape == tot.shape == (cap,)
+        assert out.dtype == torch.int64 and tot.dtype == torch.int32
+        assert torch.equal(out, count._pad_to(want[0], cap, PAD64))
         assert torch.equal(tot, count._pad_to(want[1], cap, 0))
 
 
@@ -150,30 +149,31 @@ def test_runs64_wrapper_refuses_bad_inputs(device):
 
 
 def _pair_parts(device, n_parts: int = 4, n: int = 2000):
-    """Per-batch spectra of random pair codes (``sort_rle_pair``)."""
+    """Batches of random int64 pair codes, hi = v // 2, lo = (v + 1) // 2."""
     rng = np.random.default_rng(20)
     parts = []
     for _ in range(n_parts):
         v = torch.from_numpy(rng.integers(0, 3000, n)).to(device)
-        parts.append(((v // 2).to(torch.int32), ((v + 1) // 2).to(torch.int32)))
+        parts.append((v // 2) << 31 | (v + 1) // 2)
     return parts
 
 
 def _accumulate(device):
-    """PairSpectrumAccumulator over four batches with a budget that merges
-    twice on the way and once at the end: (spans, host codes, counts)."""
+    """SpectrumAccumulator over four batches of int64 keys (``sort_rle``)
+    with a budget that merges twice on the way and once at the end: (spans,
+    host codes, counts)."""
     rec = Spans()
     with rec.job(torch.device(device)):
         with rec.span("count"):
-            acc = count_pair.PairSpectrumAccumulator(device_budget=5000)
-            for hi, lo in _pair_parts(device):
-                acc.add(*count_pair.sort_rle_pair(hi, lo))
+            acc = count.SpectrumAccumulator(device_budget=5000)
+            for keys in _pair_parts(device):
+                acc.add(*count.sort_rle(keys))
             codes, counts = acc.finish(lower_count=2)
     return rec, codes, counts
 
 
 def _want_spectrum(lower: int):
-    v = np.concatenate([(hi.long() << 31 | lo.long()).numpy() for hi, lo in _pair_parts("cpu")])
+    v = np.concatenate([keys.numpy() for keys in _pair_parts("cpu")])
     codes, counts = np.unique(v, return_counts=True)
     return codes[counts >= lower], counts[counts >= lower]
 
@@ -215,12 +215,10 @@ def _check_card(keys, weights, lower, caps=None):
     kept_k, kept_t = count.run_scan_plain(keys, weights, lower)
     assert m == kept_k.numel()
     for cap in caps or (n, count._out_cap(m, n)):
-        planes, tot = count.run_compact(runs, cap)
+        out, tot = count.run_compact(runs, cap)
         torch.cuda.synchronize()
-        assert planes.shape == (2, cap), cap
-        hi, lo = planes
-        want_hi, want_lo = split64_t(count._pad_to(kept_k, cap, PAD64))
-        assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo), cap
+        assert out.shape == (cap,) and out.dtype == torch.int64, cap
+        assert torch.equal(out, count._pad_to(kept_k, cap, PAD64)), cap
         assert torch.equal(tot, count._pad_to(kept_t, cap, 0)), cap
     assert count.entry_launches["rn_count64"] == before["rn_count64"] + 1
     assert count.entry_launches["rn_write64"] > before["rn_write64"]
@@ -249,8 +247,8 @@ def test_cuda_runs64_at_a_merge_of_2_to_28_weighted_entries():
 
 @pytest.mark.cuda
 def test_cuda_runs64_at_the_fast_path_of_2_to_27_keys():
-    """The fast path (``count_pair_codes_threshold``, one 80 Mb chromosome a
-    sort): 2^27 pair codes, lower 3, a PAD64 run of 2^27 - 80,000,000,
+    """The fast path (``count_codes_threshold`` on int64 keys, one 80 Mb
+    chromosome a sort): 2^27 pair codes, lower 3, a PAD64 run of 2^27 - 80,000,000,
     cap from the survivor count."""
     _card()
     n = 1 << 27

@@ -14,8 +14,8 @@ predecessors (the carry words, where a prefix or a word with a run end
 stops the walk, then the exact survivor counts), for any order in which
 the blocks finish; and the write launch, which reads each block's weight
 in and survivor offset from the finished status words, writes the
-survivors below the cap (int64 keys as their hi and lo planes) and pads
-from the survivor count. The transcription is held exact to the plain
+survivors below the cap (keys of the input's width) and pads (SENTINEL,
+or PAD64 for int64 keys) from the survivor count. The transcription is held exact to the plain
 version (``run_scan_plain``, through ``run_scan`` + ``run_compact``) at
 one block, a ragged last block, and a run open across more blocks than a
 look-back window; a transcription whose look-back does not stop at a run
@@ -154,12 +154,6 @@ def _keeps(t: dict, b: int, cin: int, lower: int):
     return tot, kept
 
 
-def _planes(keys: np.ndarray, pair: bool) -> np.ndarray:
-    """The output planes of keys: int32 keys as they are; pair codes as hi
-    = key >> 31 and lo = key & 0x7fffffff."""
-    return np.stack([keys >> 31, keys & 0x7FFFFFFF] if pair else [keys])
-
-
 def transcribe(keys: np.ndarray, weights, lower: int, cap: int, order, broken: str = ""):
     pair = keys.dtype == np.int64
     t = _tiles(keys, weights, broken, INT64 if pair else INT32)
@@ -183,11 +177,11 @@ def transcribe(keys: np.ndarray, weights, lower: int, cap: int, order, broken: s
             counts[b] = CONST["FLAG_PREFIX"] << SHIFT | (_look_back(counts, b, broken)
                                                          + (counts[b] & ((1 << 32) - 1)))
     m = counts[nb - 1] & ((1 << 32) - 1)  # the last block's prefix
-    out_k = np.full((2 if pair else 1, cap), -1, np.int64)
+    out_k = np.full(cap, -1, np.int64)
     out_t = np.full(cap, -1, np.int64)
     for b in range(max(nb, -(-cap // TILE))):  # the write launch
         lo, hi = max(m, b * TILE), min(cap, (b + 1) * TILE)
-        out_k[:, lo:hi], out_t[lo:hi] = SENTINEL, 0
+        out_k[lo:hi], out_t[lo:hi] = PAD64 if pair else SENTINEL, 0
         if b >= nb:
             continue
         soff = 0 if b == 0 else counts[b - 1] & ((1 << 32) - 1)
@@ -197,7 +191,7 @@ def transcribe(keys: np.ndarray, weights, lower: int, cap: int, order, broken: s
         tot, kept = _keeps(t, b, cin_b, lower)
         at = soff + np.cumsum(kept.reshape(-1)) - 1
         sel = kept.reshape(-1) & (at < cap)
-        out_k[:, at[sel]] = _planes(t["k"][b].reshape(-1)[sel], pair)
+        out_k[at[sel]] = t["k"][b].reshape(-1)[sel]
         out_t[at[sel]] = tot.reshape(-1)[sel]
     return out_k, out_t, m
 
@@ -205,8 +199,9 @@ def transcribe(keys: np.ndarray, weights, lower: int, cap: int, order, broken: s
 def _plain(keys, weights, lower, cap):
     runs = count.run_scan(torch.from_numpy(keys),
                           None if weights is None else torch.from_numpy(weights), lower)
-    got_keys, got_tot = count.run_compact(runs, cap)  # pair codes: (2, cap)
-    return got_keys.numpy().reshape(-1, cap), got_tot.numpy(), int(runs.m)
+    got_keys, got_tot = count.run_compact(runs, cap)
+    assert got_keys.shape == (cap,) and got_keys.dtype == runs.keys.dtype
+    return got_keys.numpy(), got_tot.numpy(), int(runs.m)
 
 
 def _case(name: str):

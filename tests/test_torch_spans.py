@@ -16,6 +16,7 @@ import torch
 from span_paths import assert_children_within_parents, sub_spans
 from subphaser_torch.utils import profiling
 from subphaser_torch.utils.profiling import Spans, span
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 
@@ -190,6 +191,32 @@ def test_merge_calls_count_the_key_value_sorts():
     assert_children_within_parents(rec.seconds)
 
 
+@pytest.mark.parametrize("budget,lower", [(1 << 20, 1), (1 << 20, 2), (1 << 10, 1),
+                                          (1 << 10, 2), (None, 2)],
+                         ids=["merge_lower1", "merge_lower2", "spill_lower1", "spill_lower2",
+                              "one_sort"])
+def test_one_collect_a_chromosome(budget, lower):
+    """Every route reads a chromosome back in one ``count/collect`` call:
+    the fast path's one sort, ``finish`` at either threshold, with or without
+    host spills; a spill inside ``add`` records none."""
+    from subphaser_torch.ops.count import SpectrumAccumulator, count_codes_threshold
+
+    rng = np.random.default_rng(3)
+    rec = Spans()
+    with rec.job(CPU):
+        with rec.span("count"):
+            if budget is None:
+                count_codes_threshold([_part(rng)[0] for _ in range(4)], lower)
+            else:
+                acc = SpectrumAccumulator(device_budget=budget)
+                for _ in range(4):
+                    acc.add(*_part(rng))
+                assert bool(acc.spilled) == (budget < 4096)
+                acc.finish(lower)
+    assert rec.calls["count/collect"] == 1
+    assert_children_within_parents(rec.seconds)
+
+
 def _part(rng):
     from subphaser_torch.ops.count import sort_rle
 
@@ -253,7 +280,7 @@ def test_pair_sorts_count_the_keys_of_their_batches():
     """``count/sort@int64_keys`` adds every key of each keys-only int64 sort:
     a batch's positions on the accumulator path, the power-of-two padded
     concatenation on the fast path; the merges' key-value sorts add none."""
-    from subphaser_torch.ops import count_pair
+    from subphaser_torch.ops import count
 
     tiles = _pair_tiles(4)
     batches = [(torch.stack([w for w, _ in tiles[i:i + 2]]),
@@ -261,9 +288,9 @@ def test_pair_sorts_count_the_keys_of_their_batches():
     rec = Spans()
     with rec.job(CPU):
         with rec.span("count"):
-            acc = count_pair.PairSpectrumAccumulator(device_budget=1 << 12)
+            acc = count.SpectrumAccumulator(device_budget=1 << 12)
             for words, vwords in batches:
-                acc.add(*count_pair.count_tile_batch_pair(words, vwords, 17, 1024 // 16))
+                acc.add(*count.count_tile_batch(words, vwords, 17, 1024 // 16))
             acc.finish(lower_count=2)
     held = sum(w.shape[0] * 1024 for w, _ in batches)
     assert rec.seconds["count/sort@int64_keys"] == held == 4096
@@ -272,9 +299,8 @@ def test_pair_sorts_count_the_keys_of_their_batches():
     rec = Spans()
     with rec.job(CPU):
         with rec.span("count"):
-            parts = [count_pair.extract_pair_codes_batch(w, v, 17, 1024 // 16)
-                     for w, v in tiles[:3]]
-            count_pair.count_pair_codes_threshold(parts, 2)
+            parts = [count.extract_codes_batch(w, v, 17, 1024 // 16) for w, v in tiles[:3]]
+            count.count_codes_threshold(parts, 2)
     assert rec.seconds["count/sort@int64_keys"] == 4096  # 3 x 1024 keys padded
     assert "count/merge" not in rec.calls
 
@@ -352,6 +378,7 @@ def test_core_job_spans_by_counting_path(synthetic, monkeypatch, k, budget, want
     assert not any(p.endswith("@device") for p in seconds)
     assert_children_within_parents(seconds)
     calls = pipe.spans.calls
+    assert calls["count/collect"] == len(pipe.genome.chroms)
     tiles = list(pipe.genome.tiles(k, tile_bases=1 << 16))
     if k == 15:
         assert not any("@" in p for p in seconds)

@@ -5,24 +5,24 @@ bit for bit against their plain version (``run_scan_plain``, on the card)
 and times them against the bytes bound, the plain version and the
 ``torch.cummax`` chain they replaced (start and end masks, the prefix
 maximum of the run starts, the keep mask, a boolean select and the pads;
-for pair codes the chain of ops/count_pair, with its hi-word pad test and
-the split into hi and lo):
+for int64 pair codes with the hi-word pad test):
 
 - ``batch_2^24``: 2^24 keys, run lengths, lower 1, cap = n: one ``sort_rle``
   of a low-memory batch (4 tiles of 2^22 positions);
-- ``fast_2^27``: 2^27 keys, lower 3, cap 2^23: ``count_codes_async`` on the
-  fast path (one chromosome a sort);
+- ``fast_2^27``: 2^27 keys, lower 3, a fixed cap of 2^23: the fast path's
+  pass (``count_codes_threshold``, one chromosome a sort) at a cap that its
+  survivor count may pass;
 - ``merge_2^28``: 2^28 weighted entries, lower 1, cap from the survivor
   count: a merge of ``SpectrumAccumulator`` (a 2^27 budget pre-merged);
 - ``pair_batch_2^24``: 2^24 int64 pair codes, run lengths, lower 1, cap n:
-  one batch of ``PairSpectrumAccumulator`` at k > 15 (``rn_count64`` +
+  one batch of ``SpectrumAccumulator`` at k > 15 (``rn_count64`` +
   ``rn_write64``);
 - ``pair_merge_2^28``: 2^28 weighted pair codes, lower 1, cap from the
-  survivor count: a merge of ``PairSpectrumAccumulator``;
+  survivor count: a merge of ``SpectrumAccumulator`` at k > 15;
 - ``pair_fast_2^27``: 2^27 pair codes, lower 3, cap from the survivor
-  count, a PAD64 run of 2^27 - 80,000,000: ``count_pair_codes_threshold``
-  on the fast path (one 80 Mb chromosome a sort, as in chip_smoke.py's
-  phase ``main_k17``).
+  count, a PAD64 run of 2^27 - 80,000,000: ``count_codes_threshold`` on
+  the fast path at k > 15 (one 80 Mb chromosome a sort, as in
+  chip_smoke.py's phase ``main_k17``).
 
 Keys are sorted draws: three quarters from n/3 values (runs of a few), one
 quarter from n/4096 values (runs of ~1,000 that cross the kernel's 4,096-key
@@ -36,7 +36,7 @@ Times: CUDA events around one call, median of 5 after a warm-up
 the ``runs`` span holds); the plain version and the cummax chain the same
 way below 2^28 and once by CUDA events at 2^28. The bound: 4 n bytes of
 int32 keys or 8 n of pair codes, 4 n of weights, and 8 bytes an output
-slot (12: a pair's two words and its total) at 3.35 TB/s.
+slot (12: an int64 key and its total) at 3.35 TB/s.
 
 Usage (needs a CUDA card; raises without one):
 
@@ -56,7 +56,7 @@ import torch  # noqa: E402
 
 from subphaser_torch.ops import count  # noqa: E402
 from subphaser_torch.ops.kmer import SENTINEL  # noqa: E402
-from subphaser_torch.ops.kmer_pair import PAD64, split64_t  # noqa: E402
+from subphaser_torch.ops.kmer_pair import PAD64  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 # shape -> (n, weighted, lower, cap: an int, or None for the merge's
@@ -106,11 +106,10 @@ def kernel_call(keys, weights, lower: int, cap):
 
 
 def _padded(keys, total, cap):
-    """Survivors padded to ``cap``: (keys, totals), the keys of pair codes a
-    (2, cap) tensor of hi and lo, as ``run_compact`` writes them."""
-    if keys.dtype == torch.int64:
-        return torch.stack(split64_t(count._pad_to(keys, cap, PAD64))), count._pad_to(total, cap, 0)
-    return count._pad_to(keys, cap, SENTINEL), count._pad_to(total, cap, 0)
+    """Survivors padded to ``cap``: (keys, totals), as ``run_compact`` writes
+    them (keys of their dtype, SENTINEL- or PAD64-padded)."""
+    pad = PAD64 if keys.dtype == torch.int64 else SENTINEL
+    return count._pad_to(keys, cap, pad), count._pad_to(total, cap, 0)
 
 
 def plain_call(keys, weights, lower: int, cap):
@@ -121,8 +120,8 @@ def plain_call(keys, weights, lower: int, cap):
 
 
 def cummax_call(keys, weights, lower: int, cap):
-    """The chain the kernel replaced (ops/count before it; ops/count_pair's
-    for int64 pair codes, whose pad test reads the hi word), same outputs."""
+    """The chain the kernel replaced (ops/count before it; for int64 pair
+    codes the pad test reads the hi word), same outputs."""
     n = keys.numel()
     start = torch.ones(n, dtype=torch.bool, device=keys.device)
     start[1:] = keys[1:] != keys[:-1]
